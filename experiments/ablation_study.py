@@ -123,7 +123,7 @@ def main():
     ap.add_argument("--model", default="tiny-test",
                     choices=["tiny-test", "tinyllama"])
     ap.add_argument("--layers", type=int, default=None)
-    ap.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     ap.add_argument("--tasks", nargs="+", default=["narrativeqa", "qasper"])
     ap.add_argument("--max-samples", type=int, default=10)
     ap.add_argument("--max-length", type=int, default=1024)

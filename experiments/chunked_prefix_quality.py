@@ -15,7 +15,7 @@ multiple: filler = T - 9 for the recall task):
   comp_prefix     compressed-prefix chunked prefill (chunk = T/4) + decode
 
 Usage:
-  python experiments/chunked_prefix_quality.py --platform tpu \
+  python experiments/chunked_prefix_quality.py --platform gpu \
       --contexts 256,1024,4096 --steps 2400 --params-dir <dir>
 """
 
@@ -32,7 +32,7 @@ from experiments.quality_demo import make_batch, train_recall_model  # noqa: E40
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--contexts", default="256,1024",
                     help="comma list of prompt lengths T (each a multiple "
                     "of 16; chunk = T/4)")

@@ -236,7 +236,7 @@ def main():
                     choices=["grid", "random", "bayesian", "genetic",
                              "compare"])
     ap.add_argument("--trials", type=int, default=8)
-    ap.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--tasks", nargs="+", default=["narrativeqa", "qasper"])
     ap.add_argument("--max-samples", type=int, default=5)

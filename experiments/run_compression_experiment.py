@@ -8,8 +8,8 @@ ratios, bit tiers, tasks, max_samples, max_new_tokens, output_dir,
 experiment_name, --baseline), writing config.json + experiment_summary.json
 + per-task artifacts, with error.log on failure.
 
-TPU-native additions: --mesh-model/--mesh-data GSPMD sharding, --flash
-(Pallas prefill), --platform cpu|tpu, and a hermetic --synthetic mode with
+Additions: --mesh-model/--mesh-data GSPMD sharding, --flash (flash
+prefill), --platform cpu|gpu, and a hermetic --synthetic mode with
 planted-answer data (this environment has zero egress; real LongBench JSONL
 can be supplied via --data-dir).
 """
@@ -35,7 +35,7 @@ def parse_args():
                    help="local HF checkpoint dir (safetensors) for weights")
     p.add_argument("--layers", type=int, default=None,
                    help="override layer count (smoke tests)")
-    p.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu"])
     p.add_argument("--max-length", type=int, default=4096)
     p.add_argument("--max-new-tokens", type=int, default=64)
     # Compression hyperparameters (reference parity)

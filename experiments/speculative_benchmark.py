@@ -12,7 +12,7 @@ bigram collisions are negligible). Outputs are asserted token-identical
 between the two arms before any timing is reported.
 
 Usage:
-  python experiments/speculative_benchmark.py --platform tpu \
+  python experiments/speculative_benchmark.py --platform gpu \
       --fillers 512,4096 --payload 48 --n-draft 4
 """
 
@@ -29,7 +29,7 @@ from experiments.quality_demo import make_batch, train_recall_model  # noqa: E40
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--task", default="recall", choices=["recall", "multidoc"])
     ap.add_argument("--steps", type=int, default=1200)
     ap.add_argument("--train-batch", type=int, default=16)
@@ -65,8 +65,7 @@ def main():
 
     import realtime_kv_cache_compression_tpu as rtc
     from realtime_kv_cache_compression_tpu.models import llama, speculative
-    from realtime_kv_cache_compression_tpu.utils.timing import (measure_rtt,
-                                                                timed)
+    from realtime_kv_cache_compression_tpu.utils.timing import timed
 
     fillers = [int(f) for f in args.fillers.split(",")]
     # Large vocab keeps filler bigram collisions (which would shadow the
@@ -101,8 +100,6 @@ def main():
             checkpoint.save_checkpoint(ckpt, params)
             print(f"saved {args.task} params to {ckpt}", flush=True)
 
-    rtt = measure_rtt()
-    print(f"rtt {rtt*1e3:.1f} ms", flush=True)
     results = []
     n_steps = args.payload
     for filler in fillers:
@@ -141,10 +138,9 @@ def main():
         gen = jnp.concatenate([first[:, None], ref[:, :-1]], axis=1)
         em = float((gen == payload).all(axis=1).mean())
 
-        t_greedy, _ = timed(lambda: float(run_greedy(first, state).sum()),
-                            rtt, reps=args.reps)
-        t_spec, _ = timed(lambda: float(run_spec(first, state)[0].sum()),
-                          rtt, reps=args.reps)
+        t_greedy, _ = timed(lambda: run_greedy(first, state),
+                            reps=args.reps)
+        t_spec, _ = timed(lambda: run_spec(first, state), reps=args.reps)
         adaptive_row = None
         if args.adaptive:
             def run_adaptive():
@@ -155,8 +151,7 @@ def main():
                 return toks, st
             toks_a, st_a = run_adaptive()        # compile both chunk arms
             assert jnp.array_equal(ref, toks_a), "adaptive != greedy output"
-            t_adapt, _ = timed(lambda: float(run_adaptive()[0].sum()),
-                               rtt, reps=args.reps)
+            t_adapt, _ = timed(run_adaptive, reps=args.reps)
             adaptive_row = dict(
                 ms=t_adapt * 1e3, speedup=t_greedy / t_adapt,
                 forwards=st_a["forwards"],

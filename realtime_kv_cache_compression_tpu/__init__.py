@@ -1,11 +1,11 @@
-"""TPU-native real-time KV-cache compression framework.
+"""Real-time KV-cache compression framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 reference PyTorch prototype `RealTime-KV-cache-Compression`:
 prompt-guided token importance scoring, dynamic mixed-bit (2/4/8/16)
 per-token KV quantization with real bit-packed storage, and budgeted
 selective token propagation — fused into the prefill attention path and
-sharded over TPU meshes with GSPMD.
+sharded over device meshes with GSPMD.
 """
 
 from .config import (CompressionConfig, ModelConfig, RopeScaling,

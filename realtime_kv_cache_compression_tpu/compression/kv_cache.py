@@ -1,6 +1,6 @@
 """Mixed-precision compressed KV-cache containers (pytrees).
 
-TPU-native replacement for the reference's `CompressedKVCache` dict-of-layers
+Replacement for the reference's `CompressedKVCache` dict-of-layers
 container (/root/reference/src/models/compression_layers.py:7-45): statically
 shaped, physically bit-packed, tier-contiguous, and carrying original token
 positions so decode attention is exact w.r.t. RoPE and causality.
@@ -131,6 +131,7 @@ def append_recent(cache: RecentCache, k_new: Array, v_new: Array,
     if gate is not None:
         drop = drop | ~gate
     idx = jnp.minimum(cache.length, cap - 1)
+    k_new, v_new = k_new.astype(cache.k.dtype), v_new.astype(cache.v.dtype)
     sel = lambda new, old: jnp.where(drop[:, None, None], old, new)
     return RecentCache(
         k=cache.k.at[b, idx].set(sel(k_new[:, 0], cache.k[b, idx])),

@@ -1,11 +1,11 @@
-"""Configuration for the TPU-native real-time KV-cache compression framework.
+"""Configuration for the real-time KV-cache compression framework.
 
 Capability parity with the reference `CompressionConfig`
 (/root/reference/configs/base_config.py:4-57) — same hyperparameter surface
 (three-term importance weights, precision thresholds, layer-group propagation
 ratios, bit tiers, auto-generated per-layer weights) — redesigned as frozen,
 hashable dataclasses usable as *static* arguments to jitted functions, plus
-TPU-specific knobs the reference has no counterpart for (static tier-capacity
+knobs the reference has no counterpart for (static tier-capacity
 mode, quantization group size, selection mode, Pallas block sizes).
 
 Everything here is static metadata: shapes derived from these configs are
@@ -72,13 +72,13 @@ class CompressionConfig:
     prompt_frac: float = 0.2
     prompt_cap: int = 128
 
-    # --- TPU-native knobs (no reference counterpart) ---
+    # --- knobs with no reference counterpart ---
 
     # Tier assignment mode:
     #   "threshold": reference semantics — tier from theta_h/theta_m comparison;
     #       data-dependent tier counts, so each tier pool is allocated at full
     #       slot capacity with validity masks.
-    #   "quantile": TPU-native default — static tier counts as fractions of the
+    #   "quantile": default — static tier counts as fractions of the
     #       selected-token budget; the most-important selected tokens take the
     #       high tier. Deterministic memory, no masks wasted.
     tier_mode: str = "quantile"
@@ -202,7 +202,7 @@ class CompressionConfig:
     # cache still fully governs decode.
     recompute_prefill_attention: bool = False
 
-    # Round selected-slot capacities up to this multiple for TPU lane friendliness.
+    # Round selected-slot capacities up to this multiple (aligned shapes).
     slot_align: int = 8
 
     # Tokens per sub-byte packing chunk (ops/quantization.pack_codes):

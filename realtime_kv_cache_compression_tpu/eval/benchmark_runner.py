@@ -9,9 +9,9 @@ config scenarios (:41-82), synthetic test sequences at target token lengths
 reference, it is actually importable (the reference file has a space in its
 name and a broken relative import, SURVEY.md §2.4).
 
-TPU redesign: timing uses one-program scan decode + RTT-corrected readback
-walls (utils/timing.py) instead of CUDA synchronize; memory is physical
-cache bytes + device HBM stats.
+Timing uses one-program scan decode, with the host clock around work that
+ends in `block_until_ready` (utils/timing.py); memory is physical cache
+bytes + device memory stats.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from ..config import CompressionConfig, ModelConfig
 from ..models import llama
 from ..utils.data import save_json
 from ..utils.memory import device_memory_stats
-from ..utils.timing import measure_rtt, readback, timed
+from ..utils.timing import timed
 
 
 def named_scenarios(num_layers: int) -> Dict[str, Optional[CompressionConfig]]:
@@ -71,7 +71,6 @@ class CompressionBenchmark:
         self.new_tokens = new_tokens
         self.batch = batch
         self.use_flash = use_flash
-        self.rtt = measure_rtt()
         self.results: Dict[str, Any] = {}
 
     # -- measurement --------------------------------------------------------
@@ -92,19 +91,13 @@ class CompressionBenchmark:
             loop = jax.jit(lambda p, t, s: llama.decode_loop(
                 p, t, s, n, self.mcfg, ccfg))
             logits, state, stats = prefill(self.params, ids)
-            readback(logits[:, :8])
             tok = jnp.argmax(logits, axis=-1)
-            readback(loop(self.params, tok, state)[0])  # compile
+            jax.block_until_ready(loop(self.params, tok, state))  # compile
 
-            def run_prefill():
-                out = prefill(self.params, ids)
-                readback(out[0][:, :8])
-                return out
-
-            ttft, (logits, state, stats) = timed(run_prefill, self.rtt)
+            ttft, (logits, state, stats) = timed(
+                lambda: prefill(self.params, ids))
             tok = jnp.argmax(logits, axis=-1)
-            dt, _ = timed(lambda: readback(loop(self.params, tok, state)[0]),
-                          self.rtt)
+            dt, _ = timed(lambda: loop(self.params, tok, state))
             comp = summarize_layer_stats(stats)
         else:
             prefill = jax.jit(lambda p, i: llama.prefill_uncompressed(
@@ -119,22 +112,14 @@ class CompressionBenchmark:
                                    (0, 0)))
 
             logits, kv = prefill(self.params, ids)
-            readback(logits[:, :8])
             kvp = (pad(kv[0]), pad(kv[1]))
             pos = jnp.full((self.batch,), seq_len, jnp.int32)
             tok = jnp.argmax(logits, axis=-1)
-            readback(loop(self.params, tok, kvp, pos)[0])  # compile
+            jax.block_until_ready(loop(self.params, tok, kvp, pos))  # compile
 
-            def run_prefill():
-                out = prefill(self.params, ids)
-                readback(out[0][:, :8])
-                return out
-
-            ttft, (logits, kv) = timed(run_prefill, self.rtt)
+            ttft, (logits, kv) = timed(lambda: prefill(self.params, ids))
             kvp = (pad(kv[0]), pad(kv[1]))
-            dt, _ = timed(
-                lambda: readback(loop(self.params, tok, kvp, pos)[0]),
-                self.rtt)
+            dt, _ = timed(lambda: loop(self.params, tok, kvp, pos))
             comp = None
 
         rec = {
@@ -230,7 +215,7 @@ class CompressionBenchmark:
                  f"model: {self.mcfg.num_layers}L hidden="
                  f"{self.mcfg.hidden_size} kv_heads={self.mcfg.num_kv_heads}",
                  f"batch={self.batch} new_tokens={self.new_tokens} "
-                 f"flash={self.use_flash} rtt={self.rtt*1e3:.1f}ms", ""]
+                 f"flash={self.use_flash}", ""]
         lines.append("| config | seq | TTFT (ms) | tok/s | savings |")
         lines.append("|---|---|---|---|---|")
         for name, res in self.results.items():

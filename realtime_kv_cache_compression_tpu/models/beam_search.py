@@ -5,10 +5,10 @@ reference reached through GenerationConfig (src/evaluation/longbench_eval.py:
 131-139 — the reference used `do_sample=False`, i.e. HF's beam machinery was
 available but unexercised; this makes it a first-class, jit-safe capability).
 
-TPU design:
+Design:
   * The whole search is ONE `lax.scan` program — B·W beam rows decode as a
-    single batch through `decode_step`, so the MXU sees one fat matmul per
-    layer instead of W thin ones.
+    single batch through `decode_step`, so each layer runs one fat matmul
+    instead of W thin ones.
   * Beam reindexing (each step keeps the W best (parent, token) pairs) is a
     pure axis-0 gather over the decode-state pytree. Because the state is the
     *compressed* cache (packed sub-byte pools + small rings), the per-step
@@ -78,9 +78,7 @@ def beam_search(
     if use_fused_decode is None:
         from .llama import resolve_fused_decode
 
-        # Beam decode runs at batch B*num_beams.
-        use_fused_decode = resolve_fused_decode(
-            params, cfg, int(input_ids.shape[0]) * num_beams)
+        use_fused_decode = resolve_fused_decode(cfg, ccfg)
     b = input_ids.shape[0]
     w = num_beams
     t_total = max_new_tokens

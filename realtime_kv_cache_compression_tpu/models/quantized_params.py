@@ -1,17 +1,16 @@
 """Weight-only int8 quantization for the params pytree.
 
 North-star capability ("quantized-inference engine"): per-output-channel
-symmetric int8 weights halve both HBM footprint (Llama-2-7B: 12.9 GB → 6.6
-GB, fitting 4K+ contexts on one 16 GB chip) and the weight-streaming floor
-of decode latency. Norm vectors stay in full precision; the embedding table
+symmetric int8 weights halve both the device-memory footprint
+(Llama-2-7B: 12.9 GB → 6.6 GB) and the weight-streaming floor of decode
+latency. Norm vectors stay in full precision; the embedding table
 quantizes per row (gather → scale).
 
 Matmul execution: `llama._matmul` dispatches on `QuantizedTensor`. Default:
-the XLA path dequantizes the weight operand into the dot (convert fuses on
-TPU for streaming operands). With `act_quant=True`
-(quantize_params(..., act_quant=True)), activations quantize per token on
-the fly and the matmul runs int8 x int8 -> int32 on the MXU through
-`ops/pallas/int8_matmul.py` — double the bf16 MXU rate on v5e.
+the XLA path dequantizes the weight operand into the dot. With
+`act_quant=True` (quantize_params(..., act_quant=True)), activations
+quantize per token on the fly and the matmul runs int8 x int8 -> int32
+through `ops/int8_matmul.py` (the int8 tensor-core rate is twice bf16's).
 
 Round 3 adds **int4 weights** (`quantize_params(..., bits=4)` →
 `Int4Tensor`): nibble-packed codes with group-wise scales along the
@@ -46,8 +45,8 @@ class QuantizedTensor:
     q: Array
     scale: Array
     axis: int = dataclasses.field(metadata=dict(static=True), default=1)
-    # int8 x int8 MXU path: quantize activations per token and run the
-    # Pallas int8 matmul kernel instead of dequantizing the weight.
+    # int8 x int8 path: quantize activations per token and run an int8
+    # GEMM instead of dequantizing the weight (ops/int8_matmul.py).
     act_quant: bool = dataclasses.field(metadata=dict(static=True),
                                         default=False)
 
@@ -84,13 +83,10 @@ class Int4Tensor:
     nibble-packed along the IN (reduction) axis in a HALF-SPLIT layout:
     uint8 `q_packed[p, o]` holds row p in its low nibble and row
     p + in_dim/2 in its high nibble. Unpacking is zero-extend + mask/shift
-    (no sign-extension double-shift — the r5 probe measured the offset-
-    binary unpack 20% faster than sign-extended nibbles at the decode
-    matvec shape, probe_matvec_r5.json i4_v2 vs i4_cur), and the -8 offset
-    folds into a rank-1 correction around the raw code dot:
+    (no sign-extension double-shift), and the -8 offset folds into a rank-1 correction around the raw code dot:
         x @ W_g = (x_g @ u_g - 8·Σx_g) · s_g
-    so the fused kernel (ops/pallas/int4_matmul.py) streams packed bytes at
-    0.5 bytes/element with ~5 VPU ops/byte. Scales are per
+    so a fused dequant-matmul can stream packed bytes at 0.5
+    bytes/element. Scales are per
     (group, out-channel), group size G along the reduction axis
     (in_dim % G == 0; callers fall back to one group otherwise). History:
     r3 interleaved signed pairs (16x regression — XLA materialized the
@@ -156,8 +152,7 @@ class QuantizedExpertTensor:
     """Per-(expert, out-channel) symmetric int8 MoE weight stack:
     w[e, i, o] ≈ q[e, i, o] · scale[e, o].
 
-    Batch-1 MoE decode is routed-expert-weight-streaming-bound (r3 measured
-    19.5 ms/step vs a ~4.2 ms bf16 expert-bytes floor, RESULTS.md); int8
+    Batch-1 MoE decode is routed-expert-weight-streaming-bound; int8
     experts halve the streamed bytes, and the dequant (convert + per-out
     scale) fuses into each path's einsum/dot operand stream in ops/moe.py.
     """
@@ -191,9 +186,8 @@ class Int4ExpertTensor:
 
     Composes the two round-4 decode levers: the dynslice MoE path slices
     ONE expert's packed codes + scales (ops/moe.py) and feeds them to the
-    fused Pallas dequant-matmul (ops/pallas/int4_matmul.py), so batch-1
-    MoE decode streams 0.5 bytes/element of the routed experts — the
-    weight-streaming floor quarters vs bf16.
+    grouped-einsum int4 matmul (models/llama._matmul), so batch-1 MoE
+    decode reads only the routed experts' packed bytes.
     """
 
     q_packed: Array  # [E, in_dim // 2, out] uint8 (offset-binary nibbles)
@@ -270,7 +264,7 @@ def quantize_params(params: Dict[str, Any], act_quant: bool = False,
     """Quantize all matmul weights (+ embed/lm_head) of a llama params tree.
 
     act_quant=True additionally routes these matmuls through the int8 x int8
-    MXU kernel with on-the-fly activation quantization (int8 only).
+    GEMM with on-the-fly activation quantization (int8 only).
     bits=4 stores layer matmul weights as nibble-packed group-wise
     `Int4Tensor`s; embed and lm_head stay int8 (quality-critical, few
     bytes).
@@ -347,10 +341,7 @@ def quantize_params_streaming(params: Dict[str, Any],
 
 
 def params_are_quantized(params: Any) -> bool:
-    """True when the pytree carries int8/int4 quantized weights (used by
-    the fused-decode auto heuristic: with quantized weights the
-    weight-streaming floor shrinks and the decode-path tradeoff shifts —
-    RESULTS.md)."""
+    """True when the pytree carries int8/int4 quantized weights."""
     found = False
 
     def visit(x):

@@ -2,8 +2,8 @@
 
 No reference counterpart (the reference decodes strictly one token per
 forward, src/evaluation/longbench_eval.py:131-139 via HF `generate`); this
-is a TPU-native throughput lever on top of the compressed cache: batch-1
-decode is weight-streaming-bound (benchmarks/RESULTS.md), so verifying K
+is a throughput lever on top of the compressed cache: batch-1 decode is
+weight-streaming-bound, so verifying K
 draft tokens in ONE forward pass reads the weights once for up to K+1
 emitted tokens.
 
@@ -417,10 +417,9 @@ def adaptive_speculative_decode(
     probe chunk in `probe_every`: a host-side controller measures realized
     tokens-per-forward per chunk and switches arms.
 
-    Round-3 measured failure this guards (benchmarks/RESULTS.md
-    "End-to-end speculative decode"): prompt-lookup acceptance collapsed to
-    0.32 at 4K filler and speculative ran 0.71x plain decode — misprediction
-    cost is real when the generation stops copying prompt spans. A fixed
+    The failure this guards: when the generation stops copying prompt
+    spans, prompt-lookup acceptance collapses and speculative decode runs
+    slower than plain decode — misprediction cost is real. A fixed
     n_draft must be chosen per workload; this controller observes the
     workload instead:
 

@@ -2,15 +2,15 @@
 
 Capability parity with the reference `PromptGuidedImportanceScorer`
 (/root/reference/src/compression/token_importance.py:7-176) and
-`LayerWiseImportanceTracker` (:178-213), redesigned for TPU:
+`LayerWiseImportanceTracker` (:178-213), redesigned for jit:
 
 * The reference consumes the materialized [B, H, S, S] attention matrix and
   slices prompt columns (token_importance.py:41-45). Here the scorer consumes
   only the *prompt attention mass* `A_P,i = mean_h sum_{j<P} attn[b,h,i,j]`
-  — a [B, S] vector that the Pallas flash-attention kernel produces as a
+  — a [B, S] vector that flash prefill attention produces as a
   side-channel without ever materializing S×S scores. A helper to derive the
   mass from a dense attention matrix is kept for tests/parity.
-* No host transfers, no Python loops: everything jit-compiles to VPU ops.
+* No host transfers, no Python loops: everything jit-compiles.
 
 Score formula (token_importance.py:11):
     s_i^(l) = alpha * Â_P,i^(l) * w_l + beta * b_pos(i) + gamma * r(i)
@@ -274,7 +274,7 @@ def importance_scores(
 def cumulative_scores(per_layer_scores: Array) -> Array:
     """Running mean of scores over layers 0..l for every l.
 
-    TPU-native replacement for `LayerWiseImportanceTracker.get_cumulative_scores`
+    Replacement for `LayerWiseImportanceTracker.get_cumulative_scores`
     (token_importance.py:202-213) — no CPU staging dict, and fixes the
     reference's divisor bug (it divided by layer_idx+1 even when layers were
     missing): here the divisor is always the true number of layers present.

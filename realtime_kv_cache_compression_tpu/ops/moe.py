@@ -1,4 +1,4 @@
-"""Mixture-of-Experts MLP (Mixtral-style) — TPU-native grouped matmuls.
+"""Mixture-of-Experts MLP (Mixtral-style) — grouped matmuls.
 
 No reference counterpart (the reference is dense-Llama-only,
 /root/reference/src/models/modified_llama.py); this extends the model layer
@@ -12,8 +12,8 @@ Three execution strategies, all static-shape and jit-safe:
 
 * ``ragged`` — sort token-slot rows by expert id and run ONE grouped matmul
   per projection via `jax.lax.ragged_dot` ([N*k, H] x [E, H, I] with
-  per-expert group sizes). FLOPs are exactly the routed work; the MXU sees
-  large contiguous groups. The default for prefill-sized token counts.
+  per-expert group sizes). FLOPs are exactly the routed work; the matmul
+  sees large contiguous groups. The default for prefill-sized token counts.
 * ``gather`` — per-token expert-weight gather + batched einsum. For decode
   (a handful of tokens) this reads only the k routed experts' weights from
   HBM instead of streaming all E; at batch 1 that is a 4x weight-traffic
@@ -21,9 +21,8 @@ Three execution strategies, all static-shape and jit-safe:
 * ``dynslice`` — per-routed-expert `dynamic_index_in_dim` + matvec, for
   decode-sized token counts (round 4). The gather path MATERIALIZES the
   routed experts as a fresh [N, k, in, out] buffer (read + write + re-read
-  ≈ 3x the expert bytes — r3 measured 19.5 ms/step vs a ~4.2 ms
-  expert-bytes floor, RESULTS.md); a dynamic slice feeds the dot operand
-  stream directly, reading each routed expert's weights once.
+  ≈ 3x the expert bytes); a dynamic slice feeds the dot operand stream
+  directly, reading each routed expert's weights once.
 
 All paths accept int8 expert stacks (`QuantizedExpertTensor`,
 models/quantized_params.py): codes convert in the operand stream and the
@@ -153,12 +152,11 @@ def _moe_dynslice(moe: Dict[str, Array], x2: Array, w: Array, ids: Array,
         from ..models.quantized_params import Int4ExpertTensor
 
         if isinstance(wt, Int4ExpertTensor):
-            # Fused Pallas dequant-matmul over ONE expert's packed codes:
-            # HBM reads 0.5 bytes/element of the routed expert only.
-            from .pallas.int4_matmul import int4_matmul_tensor
+            # ONE expert's packed codes through the grouped-einsum int4
+            # matmul (models/llama._matmul).
+            from ..models.llama import _matmul
 
-            y = int4_matmul_tensor(lhs[None, :].astype(jnp.bfloat16),
-                                   wt.expert(e))[0]
+            y = _matmul(lhs[None, :].astype(jnp.bfloat16), wt.expert(e))[0]
             return y.astype(jnp.float32)
         mat = jax.lax.dynamic_index_in_dim(_codes(wt), e, 0, keepdims=False)
         y = jnp.dot(lhs, mat.astype(lhs.dtype),

@@ -1,48 +1,33 @@
-"""Fused mixed-precision dequant + attention decode kernel (Pallas TPU).
+"""Split-K decode attention over the bit-packed cache (Pallas, Triton route).
 
 SURVEY.md §7.3 hard part #2: decode attention reads the bit-packed tier
-pools (8/4/2-bit codes with per-token/group scales), the quantized decode
-pool, and the uncompressed recent ring, dequantizing *inside* the kernel —
-codes stream HBM→VMEM at their packed width, so HBM traffic is cut by the
-same factor as storage. The reference has no counterpart (it fake-quantized
-fp16 tensors and ran eager torch attention, modified_llama.py:125-142).
+pools (8/4/2-bit codes with per-token scales), the quantized decode pool
+and the uncompressed recent ring, unpacking *inside* the kernel — codes
+stream from device memory at their packed width. Decode at small batch is
+far below the GPU's FLOP/byte balance point, so bytes set the pace; the XLA
+path (models/llama.py `decode_layers_step`, use_fused=False) instead writes
+dequantized bf16 K/V for every layer at every step and reads it back.
 
-ONE pallas_call per layer per step (VERDICT round-1 item #4): the grid is
-(batch, segment), where segments walk every pool in order — HIGH | MID |
-LOW tiers (grouped packing chunks), decode-pool blocks, then the recent
-ring — and all kv heads process inside one program (v5e has one TensorCore;
-fewer, fatter grid steps beat head-level grid parallelism). The online-
-softmax state (m, l, acc) lives in VMEM scratch across the segment
-dimension ("arbitrary" semantics), and Pallas pipelines each segment's
-HBM→VMEM block DMA against the previous segment's compute.
+Layout of the work: grid (batch, kv_head, split). Every pool (HIGH | MID |
+LOW tiers, decode pool, recent ring) is cut into units of one row block of
+one packing chunk; each split walks a contiguous run of one pool's units,
+unpacks the codes in registers and keeps an online softmax (m, l, acc). The
+partials of all splits merge in plain JAX (`_merge_partials`).
 
-VMEM discipline (why the layouts look the way they do):
-  * Scale/zp tensors ride in ONE lane-major block per pool,
-    [B, H_kv, 4G, N] (rows = ksc|kzp|vsc|vzp groups, lanes = tokens).
-    The naive [B, H_kv, N, G] layout puts G (often 1) in the lane
-    dimension and pads every row to 128 lanes — 32-128x VMEM waste that
-    overflows the 16 MB scoped-vmem budget. Lane-major costs nothing:
-    per-token scales are applied algebraically in [rep, N] space
-    (see below), never expanded to [N, D].
-  * Segments are capped at _MAX_SEG_BYTES of stored K rows, independent
-    of `decode_segment_tokens`, so a 32K-context pool can never demand a
-    multi-MB double-buffered block.
-
-Per-token scales (G == 1, the default) never materialize dequantized K/V:
-    s[r, n] = (q·cᵏᵀ − (Σ_d q)·zpᵏ) · scᵏ · sm_scale
+Per-token scales never expand to [N, D]: with q the query and c the integer
+codes of one scale group,
+    s[r, n] = (q·cᵏ − (Σ_d q)·zpᵏ) · scᵏ · sm_scale
     o[r, d] = (p·scᵛ)·cᵛ − Σ_n p·(scᵛ·zpᵛ)
 i.e. the (code − zp)·scale affine folds into rank-1 corrections around the
-raw integer-code matmuls. Group scales (G > 1) transpose the small [G, N]
-block and expand per-channel as before.
+raw integer-code products. Scale groups (quant_group_size) run as column
+slices of head_dim, each with its own correction.
 
 Layout contract (ops/quantization.py): codes are chunk-strided token-packed
-— within each `pack_chunk_tokens` chunk, token j*R + r lives in byte row r
-at bit offset j*bits — so a segment (= w packing chunks) unpacks with pure
-shift + mask + sublane concat, and its scales/positions are CONTIGUOUS
-lane slices (the reason for chunked packing).
-
-Masking contract: the caller folds validity into positions (invalid slot →
-position 2^30); the kernel's only mask is position <= query position.
+— within each packing chunk, token j*R + r lives in byte row r at bit
+offset j*bits — so one loaded row block unpacks into `8 // bits` token
+blocks with shift + mask. Masking contract: the caller folds validity into
+positions (invalid slot → POS_SENTINEL); the kernel's only mask is
+position <= query position.
 """
 
 from __future__ import annotations
@@ -53,205 +38,201 @@ from typing import List, NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ...compression.kv_cache import (CompressedLayerCache, DecodePool,
                                      RecentCache)
 from ...config import HIGH, LOW, MID, CompressionConfig
+from .backend import interpret_mode
 
 Array = jax.Array
 
-NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+MASK_VALUE = -1e30
 POS_SENTINEL = 1 << 30
 
-# Per-segment budget for one stored K (or V) block in VMEM, pre-padding —
-# for the WHOLE block (1, hkv, seg_rows, d), head axis included. Grid-step
-# overhead is ~µs per segment × layers × decode steps, so fewer, fatter
-# segments win; 1 MB/block keeps the sum of all pools' double-buffered K+V
-# blocks inside the 16 MB scoped-vmem limit at any context length. At
-# hkv·d = 256 (TinyLlama u8 pools) this preserves the tuned default
-# (seg 2048/3072) and degrades a seg-4096 request to 3840 rows — the exact
-# configuration that measured 16.22 MB scoped (OOM by 0.22 MB) at 32K; at
-# Llama-2-7B (hkv=32, d=128) it caps rows 16× harder — the earlier
-# per-head 256 KB budget under-counted by hkv and blew scoped VMEM (36 MB).
-_MAX_BLOCK_BYTES = 960 * 1024
+# Row blocks and program count measured on the H100 (PERF.md, kernel
+# decisions; scripts/kernel_timing.py): up to 128 stored rows per load and
+# enough splits for ~2 programs per SM (264 on 132 SMs).
+ROW_BLOCK = 128
+TARGET_PROGRAMS = 264
+NUM_WARPS = 4
+NUM_STAGES = 2
 
 
-def _interpret_default() -> bool:
-    return jax.default_backend() != "tpu"
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
-def _bytes_to_i32(stored):
-    """uint8 bytes → int32 in [0, 255]. Mosaic has no uint8→f32/i32 cast, so
-    bitcast to int8 (free), sign-extend to int32, and mask back."""
-    return pltpu.bitcast(stored, jnp.int8).astype(jnp.int32) & 0xFF
-
-
-def _expand_groups(scale_gn, d: int):
-    """Lane-major [G, N] per-group params → [N, D] per-channel.
-
-    A dot_general contracting the G axes against an iota-built 0/1
-    selection matrix E[g, ch] = (ch // gs == g) — transposes to token-major
-    and expands groups to channels in one tiny MXU matmul that always
-    lowers (Mosaic rejects broadcast+minor-dim-reshape spellings).
-    """
-    g = scale_gn.shape[0]
-    gs = d // g
-    col_group = jax.lax.broadcasted_iota(jnp.int32, (g, d), 1) // gs
-    row = jax.lax.broadcasted_iota(jnp.int32, (g, d), 0)
-    expand = (col_group == row).astype(jnp.float32)
-    return jax.lax.dot_general(scale_gn.astype(jnp.float32), expand,
-                               (((0,), (0,)), ((), ())),
-                               preferred_element_type=jnp.float32)
-
-
-def _unpack_codes(stored, bits, n_tokens, d, w=1):
-    """[R, D] packed (or [N, D] raw) uint8 → [N, D] float32 integer codes.
-
-    `w` = packing chunks in this segment: sub-byte rows unpack per chunk
-    (static slices + sublane concat — chunk-strided layout contract)."""
-    p = _bytes_to_i32(stored)
-    if bits == 8:
-        return p.astype(jnp.float32)
-    per_byte = 8 // bits
-    mask = 2 ** bits - 1
-    if w == 1:
-        parts = [((p >> (j * bits)) & mask) for j in range(per_byte)]
-        return jnp.concatenate(parts, axis=0)[:n_tokens].astype(jnp.float32)
-    rows_c = p.shape[0] // w
-    chunks = []
-    for c in range(w):
-        pc = p[c * rows_c:(c + 1) * rows_c]
-        chunks.append(jnp.concatenate(
-            [((pc >> (j * bits)) & mask) for j in range(per_byte)],
-            axis=0))
-    return jnp.concatenate(chunks, axis=0).astype(jnp.float32)
-
-
-class _Entry(NamedTuple):
-    """Static metadata for one pool in the segment walk."""
+class _Pool(NamedTuple):
+    """Static description of one pool in the split walk."""
 
     bits: int
-    seg_tokens: int   # tokens per segment (= w packing chunks)
-    seg_rows: int     # stored rows per segment
-    n_segs: int
-    seg_start: int    # first segment index in the global walk
-    w: int = 1        # packing chunks per segment
-    g: int = 1        # scale groups per head
+    chunk: int         # tokens per packing chunk
+    rows_c: int        # stored rows per chunk
+    n_chunks: int
+    row_block: int     # rows per unit (power of two)
+    n_rb: int          # row blocks per chunk
+    split0: int        # first split index of this pool
+    n_splits: int
+
+    @property
+    def units(self) -> int:
+        return self.n_chunks * self.n_rb
+
+    @property
+    def per_byte(self) -> int:
+        return 1 if self.bits >= 8 else 8 // self.bits
 
 
-def _decode_kernel(qpos_ref, q_ref, *refs, sm_scale: float,
-                   entries: Tuple[_Entry, ...], total_segs: int, d: int,
-                   hkv: int, rep: int,
-                   m_scr=None, l_scr=None, acc_scr=None):
-    o_ref = refs[-1]
-    refs = refs[:-1]
-    seg = pl.program_id(1)
+def _pool_kernel(e: _Pool, refs, split, q_ref, qpos, *, groups: int, gs: int,
+                 block_h: int, scale2: float, cdt):
+    """Walk this split's units of pool `e`; returns (accs, m, l)."""
+    if e.bits == 16:
+        k_ref, v_ref, pos_ref = refs
+    else:
+        k_ref, v_ref, ksc_ref, kzp_ref, vsc_ref, vzp_ref, pos_ref = refs
+    local = split - e.split0
+    u0 = jax.lax.div(local * e.units, e.n_splits)
+    u1 = jax.lax.div((local + 1) * e.units, e.n_splits)
+    rb = e.row_block
+    mask_bits = (1 << e.bits) - 1
+    qs = [q_ref[:, pl.ds(g * gs, gs)] for g in range(groups)]
+    qsums = [jnp.sum(qg.astype(jnp.float32), axis=1) for qg in qs]
 
-    @pl.when(seg == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
+    def unit(u, carry):
+        accs, m, l = carry
+        c = jax.lax.div(u, e.n_rb)
+        t = u - c * e.n_rb
+        ridx = t * rb + jnp.arange(rb, dtype=jnp.int32)   # row within chunk
+        row_ok = ridx < e.rows_c
+        rows = pl.ds(c * e.rows_c + t * rb, rb)
+        toks, tok_ok, vis = [], [], []
+        for j in range(e.per_byte):
+            tok_in_chunk = j * e.rows_c + ridx
+            ok = row_ok & (tok_in_chunk < e.chunk)
+            tok0 = c * e.chunk + j * e.rows_c + t * rb
+            pos = plt.load(pos_ref.at[pl.ds(tok0, rb)], mask=ok,
+                           other=POS_SENTINEL)
+            toks.append(tok0)
+            tok_ok.append(ok)
+            vis.append(ok & (pos <= qpos))
+        # Scores of every token block of this unit, summed over groups.
+        s = [jnp.zeros((block_h, rb), jnp.float32)
+             for _ in range(e.per_byte)]
+        for g in range(groups):
+            cols = pl.ds(g * gs, gs)
+            kc = plt.load(k_ref.at[rows, cols], mask=row_ok[:, None],
+                          other=0)
+            if e.bits == 16:
+                s[0] = s[0] + pl.dot(qs[g], kc.astype(cdt), trans_b=True)
+                continue
+            kc = kc.astype(jnp.int32)
+            for j in range(e.per_byte):
+                ck = ((kc >> (j * e.bits)) & mask_bits).astype(cdt)
+                sc = plt.load(ksc_ref.at[pl.ds(toks[j], rb), g],
+                              mask=tok_ok[j], other=0.0)
+                zp = plt.load(kzp_ref.at[pl.ds(toks[j], rb), g],
+                              mask=tok_ok[j], other=0.0)
+                dot = pl.dot(qs[g], ck, trans_b=True)
+                s[j] = s[j] + (dot - qsums[g][:, None] * zp[None, :]) \
+                    * sc[None, :]
+        s = [jnp.where(vis[j][None, :], s[j] * scale2, MASK_VALUE)
+             for j in range(e.per_byte)]
+        m_new = m
+        for sj in s:
+            m_new = jnp.maximum(m_new, jnp.max(sj, axis=1))
+        alpha = jnp.exp2(m - m_new)
+        p = [jnp.where(vis[j][None, :], jnp.exp2(s[j] - m_new[:, None]), 0.0)
+             for j in range(e.per_byte)]
+        l_new = alpha * l
+        for pj in p:
+            l_new = l_new + jnp.sum(pj, axis=1)
+        new_accs = []
+        for g in range(groups):
+            cols = pl.ds(g * gs, gs)
+            vc = plt.load(v_ref.at[rows, cols], mask=row_ok[:, None],
+                          other=0)
+            acc = accs[g] * alpha[:, None]
+            if e.bits == 16:
+                acc = acc + pl.dot(p[0].astype(cdt), vc.astype(cdt))
+            else:
+                vc = vc.astype(jnp.int32)
+                for j in range(e.per_byte):
+                    cv = ((vc >> (j * e.bits)) & mask_bits).astype(cdt)
+                    sc = plt.load(vsc_ref.at[pl.ds(toks[j], rb), g],
+                                  mask=tok_ok[j], other=0.0)
+                    zp = plt.load(vzp_ref.at[pl.ds(toks[j], rb), g],
+                                  mask=tok_ok[j], other=0.0)
+                    ps = p[j] * sc[None, :]
+                    acc = (acc + pl.dot(ps.astype(cdt), cv)
+                           - jnp.sum(ps * zp[None, :], axis=1)[:, None])
+            new_accs.append(acc)
+        return tuple(new_accs), m_new, l_new
 
-    qpos = qpos_ref[0]                           # [1, 1] (broadcasts)
-
-    for e_idx, e in enumerate(entries):
-        k_r, v_r, sc_r, pos_r = refs[e_idx * 4:e_idx * 4 + 4]
-
-        @pl.when((seg >= e.seg_start) & (seg < e.seg_start + e.n_segs))
-        def _run(e=e, k_r=k_r, v_r=v_r, sc_r=sc_r, pos_r=pos_r):
-            pos_ok = pos_r[0] <= qpos            # [1, N] (broadcasts)
-            n = e.seg_tokens
-            g = e.g
-
-            def head_scales(h):
-                sc4 = sc_r[0, h]                 # [4G, N]
-                return (sc4[0:g], sc4[g:2 * g], sc4[2 * g:3 * g],
-                        sc4[3 * g:4 * g])        # ksc, kzp, vsc, vzp
-
-            # Pass 1: per-head score dots, batched into [hkv*rep, N] — the
-            # online-softmax state then updates ONCE for all heads instead
-            # of hkv times per segment (at 7B MHA that is 32 -> 1 update
-            # chains of [1, N] VPU ops; the r5 ablation put the decode gap
-            # in exactly this per-segment op count).
-            rows = []
-            for h in range(hkv):
-                q = q_ref[0, h].astype(jnp.float32)          # [rep, d]
-                if e.bits == 16:
-                    k = k_r[0, h].astype(jnp.float32)        # [N, d]
-                    s = jax.lax.dot_general(
-                        q, k, (((1,), (1,)), ((), ())),
-                        preferred_element_type=jnp.float32) * sm_scale
-                else:
-                    ck = _unpack_codes(k_r[0, h], e.bits, n, d, w=e.w)
-                    ksc, kzp, _, _ = head_scales(h)
-                    if g == 1:
-                        cs = jax.lax.dot_general(
-                            q, ck, (((1,), (1,)), ((), ())),
-                            preferred_element_type=jnp.float32)  # [rep, N]
-                        qsum = jnp.sum(q, axis=1, keepdims=True)  # [rep, 1]
-                        s = (cs - qsum * kzp) * ksc * sm_scale
-                    else:
-                        k = ((ck - _expand_groups(kzp, d))
-                             * _expand_groups(ksc, d))
-                        s = jax.lax.dot_general(
-                            q, k, (((1,), (1,)), ((), ())),
-                            preferred_element_type=jnp.float32) * sm_scale
-                rows.append(s)
-            s = jnp.concatenate(rows, axis=0)                # [hkv*rep, N]
-            s = jnp.where(pos_ok, s, NEG_INF)
-            m_prev = m_scr[...]
-            l_prev = l_scr[...]
-            m_curr = jnp.max(s, axis=1, keepdims=True)
-            m_next = jnp.maximum(m_prev, m_curr)
-            alpha = jnp.exp(m_prev - m_next)                 # [hkv*rep, 1]
-            p = jnp.exp(s - m_next)                          # [hkv*rep, N]
-            m_scr[...] = m_next
-            l_scr[...] = alpha * l_prev + jnp.sum(p, axis=1, keepdims=True)
-
-            # Pass 2: per-head PV dots, batched acc update.
-            pvs = []
-            for h in range(hkv):
-                rs = slice(h * rep, (h + 1) * rep)
-                p_h = p[rs]                                  # [rep, N]
-                if e.bits == 16:
-                    v = v_r[0, h].astype(jnp.float32)
-                    pv = jax.lax.dot(p_h, v,
-                                     preferred_element_type=jnp.float32)
-                else:
-                    cv = _unpack_codes(v_r[0, h], e.bits, n, d, w=e.w)
-                    _, _, vsc, vzp = head_scales(h)
-                    if g == 1:
-                        pv = jax.lax.dot(p_h * vsc, cv,
-                                         preferred_element_type=jnp.float32)
-                        pv -= jnp.sum(p_h * (vsc * vzp), axis=1,
-                                      keepdims=True)
-                    else:
-                        v = ((cv - _expand_groups(vzp, d))
-                             * _expand_groups(vsc, d))
-                        pv = jax.lax.dot(p_h, v,
-                                         preferred_element_type=jnp.float32)
-                pvs.append(pv)
-            acc_scr[...] = (acc_scr[...] * alpha
-                            + jnp.concatenate(pvs, axis=0))
-
-    @pl.when(seg == total_segs - 1)
-    def _finalize():
-        l = l_scr[...]
-        l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-        o = (acc_scr[...] * l_inv).astype(o_ref.dtype)   # [hkv*rep, d]
-        for h in range(hkv):
-            o_ref[0, h] = o[h * rep:(h + 1) * rep]
+    init = (tuple(jnp.zeros((block_h, gs), jnp.float32)
+                  for _ in range(groups)),
+            jnp.full((block_h,), MASK_VALUE, jnp.float32),
+            jnp.zeros((block_h,), jnp.float32))
+    return jax.lax.fori_loop(u0, u1, unit, init)
 
 
-def _tier_entry_arrays(t, bits: int, chunk: Optional[int]):
-    """(bits, chunk, arrays) for one TierCache."""
-    n = t.capacity
-    masked_pos = jnp.where(t.valid, t.positions, POS_SENTINEL)
-    return (bits, chunk or n,
-            (t.k_stored, t.v_stored, t.k_scale, t.k_zp, t.v_scale, t.v_zp,
-             masked_pos))
+def _decode_kernel(qpos_ref, q_ref, *refs, pools: Tuple[_Pool, ...],
+                   n_refs: Tuple[int, ...], groups: int, gs: int,
+                   block_h: int, scale2: float):
+    o_ref, m_ref, l_ref = refs[-3:]
+    refs = refs[:-3]
+    split = pl.program_id(2)
+    qpos = qpos_ref[...]
+    cdt = q_ref.dtype
+    start = 0
+    for e, n in zip(pools, n_refs):
+        pool_refs = refs[start:start + n]
+        start += n
+
+        @pl.when((split >= e.split0) & (split < e.split0 + e.n_splits))
+        def _run(e=e, pool_refs=pool_refs):
+            accs, m, l = _pool_kernel(e, pool_refs, split, q_ref, qpos,
+                                      groups=groups, gs=gs, block_h=block_h,
+                                      scale2=scale2, cdt=cdt)
+            for g in range(groups):
+                o_ref[:, pl.ds(g * gs, gs)] = accs[g]
+            m_ref[...] = m
+            l_ref[...] = l
+
+
+def _merge_partials(o, m, l):
+    """Exact base-2 log-sum-exp merge over the split axis (axis 2)."""
+    m_all = jnp.max(m, axis=2, keepdims=True)
+    w = jnp.exp2(m - m_all)                          # [B, H, S, BH]
+    l_sum = jnp.sum(l * w, axis=2)                   # [B, H, BH]
+    acc = jnp.sum(o * w[..., None], axis=2)          # [B, H, BH, D]
+    return acc / jnp.where(l_sum > 0.0, l_sum, 1.0)[..., None]
+
+
+def _pool_entry(bits: int, stored_k, stored_v, scales, positions,
+                chunk: Optional[int]):
+    """(static geometry, arrays) for one pool; `chunk` None = whole axis."""
+    n = positions.shape[1]
+    if chunk is None or chunk >= n:
+        chunk = n
+    n_chunks = n // chunk
+    rows_c = stored_k.shape[1] // n_chunks
+    rb = min(ROW_BLOCK, max(16, _next_pow2(rows_c)))
+    n_rb = -(-rows_c // rb)
+    geo = dict(bits=bits, chunk=chunk, rows_c=rows_c,
+               n_chunks=n_chunks, row_block=rb, n_rb=n_rb)
+    arrays = [stored_k, stored_v]
+    if bits != 16:
+        arrays += list(scales)
+    arrays.append(positions)
+    return geo, arrays
+
+
+def decode_supported(head_dim: int, group_size: int) -> bool:
+    """Shapes the kernel takes: power-of-two scale groups of >= 16 columns."""
+    gs = group_size or head_dim
+    return gs >= 16 and gs & (gs - 1) == 0 and head_dim % gs == 0
 
 
 def fused_decode_attention(
@@ -260,7 +241,6 @@ def fused_decode_attention(
     recent: RecentCache,
     q_pos: Array,
     cfg: CompressionConfig,
-    interpret: Optional[bool] = None,
     pool: Optional[DecodePool] = None,
 ) -> Array:
     """Decode attention over packed tier pools + decode pool + recent ring.
@@ -270,155 +250,103 @@ def fused_decode_attention(
       cache: layer's compressed pools (chunk-packed, see module docstring).
       recent: uncompressed decode-token ring.
       q_pos: [B, 1] int32 current positions.
-      cfg: compression config (tier bit widths, pack_chunk_tokens).
+      cfg: compression config (tier bit widths, packing chunk).
       pool: optional quantized decode-token pool (flushed ring blocks).
 
     Returns: [B, 1, H_q, D] attention output.
     """
-    if interpret is None:
-        interpret = _interpret_default()
     b, _, hq, d = q.shape
     hkv = recent.k.shape[2]
-    n_rep = hq // hkv
-    rep = max(n_rep, 8)  # pad query rows to one sublane tile
-    sm_scale = 1.0 / (d ** 0.5)
+    rep = hq // hkv
+    group_size = cfg.quant_group_size or d
+    if not decode_supported(d, group_size):
+        raise ValueError(f"decode kernel needs power-of-two scale groups of "
+                         f">= 16 columns; head_dim {d}, group {group_size}")
+    groups = d // group_size
+    block_h = max(16, _next_pow2(rep))
 
-    q_r = q[:, 0].reshape(b, hkv, n_rep, d)
-    if rep != n_rep:
-        q_r = jnp.pad(q_r, ((0, 0), (0, 0), (0, rep - n_rep), (0, 0)))
-
-    # ---- collect entries: tiers, decode-pool blocks, recent ring ----------
-    raw_entries: List[Tuple[int, int, tuple]] = []  # (bits, chunk, arrays)
+    entries = []
     for tier, t in zip((HIGH, MID, LOW), cache.tiers):
         if t.capacity == 0:
             continue
-        raw_entries.append(_tier_entry_arrays(
-            t, cfg.tier_bits(tier),
-            t.chunk if t.chunk is not None else cfg.tier_chunk(t.capacity)))
+        chunk = t.chunk if t.chunk is not None else cfg.tier_chunk(
+            t.capacity)
+        entries.append(_pool_entry(
+            cfg.tier_bits(tier), t.k_stored, t.v_stored,
+            (t.k_scale, t.k_zp, t.v_scale, t.v_zp),
+            jnp.where(t.valid, t.positions, POS_SENTINEL), chunk))
     if pool is not None and pool.n_blocks:
-        masked = jnp.where(pool.valid, pool.positions, POS_SENTINEL)
-        raw_entries.append((pool.bits, pool.block_tokens,
-                            (pool.k_stored, pool.v_stored, pool.k_scale,
-                             pool.k_zp, pool.v_scale, pool.v_zp, masked)))
+        entries.append(_pool_entry(
+            pool.bits, pool.k_stored, pool.v_stored,
+            (pool.k_scale, pool.k_zp, pool.v_scale, pool.v_zp),
+            jnp.where(pool.valid, pool.positions, POS_SENTINEL),
+            pool.block_tokens))
     if recent.capacity:
-        r_mask = jnp.arange(recent.capacity)[None, :] < recent.length[:, None]
-        r_pos = jnp.where(r_mask, recent.positions, POS_SENTINEL)
-        raw_entries.append((16, recent.capacity,
-                            (recent.k, recent.v, None, None, None, None,
-                             r_pos)))
+        live = jnp.arange(recent.capacity)[None, :] < recent.length[:, None]
+        entries.append(_pool_entry(
+            16, recent.k, recent.v, None,
+            jnp.where(live, recent.positions, POS_SENTINEL), None))
 
-    # ---- build specs: grid walks segments; index maps clamp out of range --
-    hm = lambda a: jnp.transpose(a, (0, 2, 1, 3))  # [B,N,H,x] → [B,H,N,x]
-    inputs: List[Array] = [q_pos.astype(jnp.int32)[:, :, None], q_r]
+    # Splits per pool in proportion to its units (one unit = one row block
+    # of one chunk, roughly equal bytes), enough to fill the card.
+    total_units = sum(g["n_chunks"] * g["n_rb"] for g, _ in entries)
+    want = max(len(entries), -(-TARGET_PROGRAMS // (b * hkv)))
+    pools: List[_Pool] = []
+    cursor = 0
+    for geo, _ in entries:
+        units = geo["n_chunks"] * geo["n_rb"]
+        n_splits = max(1, min(units, round(want * units / total_units)))
+        pools.append(_Pool(split0=cursor, n_splits=n_splits, **geo))
+        cursor += n_splits
+    n_total = cursor
+
+    q_r = q[:, 0].reshape(b, hkv, rep, d)
+    if block_h != rep:
+        q_r = jnp.pad(q_r, ((0, 0), (0, 0), (0, block_h - rep), (0, 0)))
+    inputs = [q_pos.astype(jnp.int32).reshape(b), q_r]
     in_specs = [
-        pl.BlockSpec((1, 1, 1), lambda bi, si: (bi, 0, 0)),
-        pl.BlockSpec((1, hkv, rep, d), lambda bi, si: (bi, 0, 0, 0)),
+        pl.BlockSpec((None,), lambda bi, h, s: (bi,)),
+        pl.BlockSpec((None, None, block_h, d), lambda bi, h, s: (bi, h, 0, 0)),
     ]
-    entries: List[_Entry] = []
-    seg_cursor = 0
-    for bits, chunk, arrays in raw_entries:
-        k_s, v_s, ksc, kzp, vsc, vzp, masked_pos = arrays
-        n = masked_pos.shape[1]
-        n_chunks = n // chunk
-        rows_total = k_s.shape[1]
-        rows_per_chunk = rows_total // n_chunks
-        # Group whole chunks per segment: fewer grid steps (less per-step
-        # overhead, bigger matmuls) at unchanged capacity granularity —
-        # capped by BOTH decode_segment_tokens and the VMEM byte budget
-        # (_MAX_SEG_BYTES per stored block), so 32K pools stay compilable.
-        # `w` need not divide n_chunks: entries pad to a whole number of
-        # segments (padded positions carry the sentinel, so they mask off;
-        # the pads are loop-invariant and hoist out of the decode scan).
-        itemsize = jnp.dtype(k_s.dtype).itemsize
-        max_rows = max(rows_per_chunk,
-                       _MAX_BLOCK_BYTES // (hkv * d * itemsize))
-        target_w = max(1, min(cfg.decode_segment_tokens // chunk,
-                              max_rows // rows_per_chunk))
-        w = min(target_w, n_chunks)
-        n_segs = -(-n_chunks // w)
-        if n_chunks % w:
-            pad_c = n_segs * w - n_chunks
-            k_s = jnp.pad(k_s, ((0, 0), (0, pad_c * rows_per_chunk),
-                                (0, 0), (0, 0)))
-            v_s = jnp.pad(v_s, ((0, 0), (0, pad_c * rows_per_chunk),
-                                (0, 0), (0, 0)))
-            masked_pos = jnp.pad(masked_pos, ((0, 0), (0, pad_c * chunk)),
-                                 constant_values=POS_SENTINEL)
-            if ksc is not None:
-                pad4 = ((0, 0), (0, pad_c * chunk), (0, 0), (0, 0))
-                ksc, kzp = jnp.pad(ksc, pad4), jnp.pad(kzp, pad4)
-                vsc, vzp = jnp.pad(vsc, pad4), jnp.pad(vzp, pad4)
-            n = n_segs * w * chunk
-        seg_tokens = w * chunk
-        seg_rows = k_s.shape[1] // n_segs
-        g = 1 if ksc is None else ksc.shape[-1]
-        e = _Entry(bits=bits, seg_tokens=seg_tokens, seg_rows=seg_rows,
-                   n_segs=n_segs, seg_start=seg_cursor, w=w, g=g)
-        entries.append(e)
-        seg_cursor += n_segs
+    n_refs = []
+    for e, (_, arrays) in zip(pools, entries):
+        for a in arrays:
+            if a.ndim == 4:      # stored codes [B, rows, H, D] / scales
+                in_specs.append(pl.BlockSpec(
+                    (None, a.shape[1], None, a.shape[3]),
+                    lambda bi, h, s: (bi, 0, h, 0)))
+            else:                # positions [B, N]
+                in_specs.append(pl.BlockSpec((None, a.shape[1]),
+                                             lambda bi, h, s: (bi, 0)))
+            inputs.append(a)
+        n_refs.append(len(arrays))
 
-        def idx4(start=e.seg_start, ns=e.n_segs):
-            return lambda bi, si: (bi, 0, jnp.clip(si - start, 0, ns - 1), 0)
-
-        def idx_tok(start=e.seg_start, ns=e.n_segs):
-            return lambda bi, si: (bi, 0, 0, jnp.clip(si - start, 0, ns - 1))
-
-        inputs.append(hm(k_s))
-        in_specs.append(pl.BlockSpec((1, hkv, seg_rows, d), idx4()))
-        inputs.append(hm(v_s))
-        in_specs.append(pl.BlockSpec((1, hkv, seg_rows, d), idx4()))
-        # Scales ride lane-major: [B, H, 4G, N] (rows ksc|kzp|vsc|vzp).
-        # bits==16 ignores scales; a tiny zero block keeps the ref layout
-        # uniform without shipping real arrays.
-        if bits == 16:
-            sc_pack = jnp.zeros((b, hkv, 4, n), jnp.float32)
-        else:
-            lm = lambda a: jnp.transpose(a, (0, 2, 3, 1))  # [B,N,H,G]→[B,H,G,N]
-            sc_pack = jnp.concatenate(
-                [lm(ksc), lm(kzp), lm(vsc), lm(vzp)], axis=2)
-        inputs.append(sc_pack)
-        in_specs.append(pl.BlockSpec((1, hkv, 4 * g, seg_tokens), idx_tok()))
-        inputs.append(masked_pos[:, None, :])
-        in_specs.append(pl.BlockSpec(
-            (1, 1, seg_tokens),
-            (lambda start, ns: lambda bi, si:
-             (bi, 0, jnp.clip(si - start, 0, ns - 1)))(e.seg_start,
-                                                       e.n_segs)))
-
-    total_segs = seg_cursor
     kernel = functools.partial(
-        _decode_kernel, sm_scale=sm_scale, entries=tuple(entries),
-        total_segs=total_segs, d=d, hkv=hkv, rep=rep)
-
-    def kernel_with_scratch(*args):
-        *io, m_scr, l_scr, acc_scr = args
-        return kernel(*io, m_scr=m_scr, l_scr=l_scr, acc_scr=acc_scr)
-
-    out = pl.pallas_call(
-        kernel_with_scratch,
-        grid=(b, total_segs),
+        _decode_kernel, pools=tuple(pools), n_refs=tuple(n_refs),
+        groups=groups, gs=group_size, block_h=block_h,
+        scale2=LOG2E / (d ** 0.5))
+    o, m, l = pl.pallas_call(
+        kernel,
+        grid=(b, hkv, n_total),
         in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, hkv, rep, d),
-                               lambda bi, si: (bi, 0, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((b, hkv, rep, d), q.dtype),
-        scratch_shapes=[
-            pltpu.VMEM((hkv * rep, 1), jnp.float32),
-            pltpu.VMEM((hkv * rep, 1), jnp.float32),
-            pltpu.VMEM((hkv * rep, d), jnp.float32),
+        out_specs=[
+            pl.BlockSpec((None, None, None, block_h, d),
+                         lambda bi, h, s: (bi, h, s, 0, 0)),
+            pl.BlockSpec((None, None, None, block_h),
+                         lambda bi, h, s: (bi, h, s, 0)),
+            pl.BlockSpec((None, None, None, block_h),
+                         lambda bi, h, s: (bi, h, s, 0)),
         ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary")),
-        interpret=interpret,
+        out_shape=[
+            jax.ShapeDtypeStruct((b, hkv, n_total, block_h, d), jnp.float32),
+            jax.ShapeDtypeStruct((b, hkv, n_total, block_h), jnp.float32),
+            jax.ShapeDtypeStruct((b, hkv, n_total, block_h), jnp.float32),
+        ],
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=NUM_STAGES),
+        backend="triton",
+        interpret=interpret_mode(),
+        name="decode_packed_attention",
     )(*inputs)
-    out = out[:, :, :n_rep, :].reshape(b, 1, hq, d)
-    return out
-
-
-# Backwards-compatible alias: the single-launch kernel is segment-walking
-# (VMEM-safe at any context length) by construction.
-def fused_decode_attention_segmented(q, cache, recent, q_pos, cfg,
-                                     interpret=None, segment_tokens=None,
-                                     pool=None):
-    del segment_tokens  # segments are the packing chunks now
-    return fused_decode_attention(q, cache, recent, q_pos, cfg,
-                                  interpret=interpret, pool=pool)
+    out = _merge_partials(o, m, l)[:, :, :rep]          # [B, Hkv, rep, D]
+    return out.reshape(b, 1, hq, d).astype(q.dtype)

@@ -1,20 +1,29 @@
-"""Pallas (Mosaic TPU) causal flash attention with an in-kernel prompt-mass
-side-channel.
+"""Prefill attention with the prompt-mass side-channel, for the GPU.
 
-This replaces the reference's prefill attention, which materializes the full
-[B, H, S, S] score matrix (modified_llama.py:88-94) so the importance scorer
-can slice prompt columns (token_importance.py:41-45). Here the kernel
-computes O = softmax(QK^T/√d)V blockwise with the online softmax (never
-materializing S×S) and *simultaneously* accumulates the prompt attention
-mass  A_P,i = Σ_{j<P, j<=i} softmax(s)_ij  as a fourth running statistic
-(SURVEY.md §7.3 hard part #1): the per-row mass accumulator is rescaled by
-the same exp(m_old − m_new) correction as the softmax denominator, so the
-result is exact. Per-row dynamic prompt lengths (ragged batches) are
-supported via a prefetched [B] length vector.
+Contract (plain reference: ops/attention.py): the causal attention output
+plus, per query row i, the prompt attention mass
+    A_P,i = mean_h Σ_{j<P, j<=i} softmax(s)_ij
+— the signal the importance scorer reads (token_importance.py:41-45
+semantics; SURVEY.md §7.3 hard part #1) — without materializing the
+[S, S] score matrix.
 
-GQA is native: kv heads are indexed as h // (H_q / H_kv) in the BlockSpecs —
-no materialized head repetition. The kernel also emits the log-sum-exp
-residual (one lane per row) for downstream use.
+Two implementations:
+
+* Square causal prefill (one-shot `prefill_compressed`): cuDNN's fused
+  flash attention returns the output and the per-row log-sum-exp, and the
+  mass is recovered exactly in one O(S·P·D) pass,
+      mass_i = mean_h Σ_{j<P_b, j<=i} exp(s_ij − lse_i),
+  with P <= prompt_cap (128) — at most P/S of the attention work, so a fused
+  hand-written mass can only win if the hand-written attention itself beats
+  cuDNN (PERF.md, kernel decisions).
+* Chunk (rect), positioned and ring-pair modes, which cuDNN cannot express
+  without a materialized mask: `_flash_kernel`, a Pallas kernel on the
+  Triton route. One program per (query tile, batch row, kv-head group): the
+  GQA group's query heads fold into the tile's rows so one K/V load serves
+  the whole group; the kv loop runs inside the program up to the causal
+  bound; m, l, acc and the mass stay in registers; the mass accumulates only
+  over kv blocks below the prompt bound (every block in positioned mode,
+  where keys carry arbitrary positions that the program loads itself).
 """
 
 from __future__ import annotations
@@ -24,307 +33,296 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
+
+from .backend import interpret_mode
 
 Array = jax.Array
 
-DEFAULT_MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+POS_SENTINEL = 1 << 30  # matches decode_attention / kv_cache convention
+
+# Tiles: 128 folded query rows x 64 keys per step, 8 warps at head_dim 128
+# and 4 below, 2 pipeline stages (the shape of JAX's own Triton attention
+# example; timed on the H100 in PERF.md, not swept).
+BLOCK_ROWS = 128
+BLOCK_K = 64
+NUM_STAGES = 2
 
 
-def _interpret_default() -> bool:
-    return jax.default_backend() != "tpu"
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
 def _flash_kernel(plen_ref, qoff_ref, q_ref, k_ref, v_ref, *rest,
-                  sm_scale: float, block_q: int, block_k: int,
-                  kv_blocks: int, n_rep: int, causal: bool = True,
-                  exp_bf16: bool = False, rect: bool = False,
-                  stats_via_mxu: bool = False, positioned: bool = False):
-    """Grid (batch, kv_head, q_block, kv_block): the whole GQA group
-    (`n_rep` query heads sharing one kv head) processes per step, so each
-    K/V block DMAs once for the group and the grid is H_q/n_rep times
-    shorter. Running stats (m, l, pmass) pack the group's heads into the
-    LANE dimension ([block_q, n_rep] scratch) — per-head [block_q, 1]
-    columns would pad every head to 128 lanes in VMEM.
+                  sm_scale: float, group: int, block_rows: int, block_k: int,
+                  n_keys: int, n_tiles: int, causal: bool, positioned: bool):
+    """One (query tile, batch row, head group) program.
 
-    VPU-pass discipline (the kernel is VPU-bound at d=64, not MXU-bound):
-      * interior blocks (fully below the causal diagonal — half of all
-        blocks) take a maskless fast path: no iota/compare/select passes;
-      * the causal compare is one broadcast pass ([bq,1] row ids vs [1,bk]
-        col ids), never two materialized [bq,bk] iotas;
-      * prompt-mass passes run only for kv blocks overlapping the prompt
-        prefix (typically 1 of S/block_k blocks); elsewhere the mass only
-        rescales by alpha, which costs one [bq,n_rep] op;
-      * scores live in base-2 space: sm_scale*log2(e) is folded into the
-        [bq,d] q tile at load (cheap) so the [bq,bk] post-dot scale pass
-        disappears, and exp→exp2 drops the ln2 multiply the VPU would
-        otherwise do inside every exp. Running m/l stats are base-2; the
-        lse output converts back to ln space at finalize."""
-    # positioned=True (compressed-prefix chunked prefill): keys are pool
-    # slots at ARBITRARY global positions carried in a kpos operand
-    # (invalid slots = POS_SENTINEL); visibility is kpos <= global query
-    # row and the prompt indicator is kpos < plen — per-element, with no
-    # interior fast path (slots are unordered) and every kv block visited.
+    Rows of the tile are position-major: row r is query position
+    q_start + r // group of head r % group of the group. Scores live in
+    base-2 space (sm_scale·log2 e folded into q), so the running max/sum use
+    exp2; lse converts back to natural log at the end."""
     if positioned:
-        (kpos_ref, o_ref, lse_ref, pm_ref,
-         m_scr, l_scr, acc_scr, pmass_scr) = rest
+        kpos_ref, o_ref, lse_ref, pm_ref = rest
     else:
-        kpos_ref = None
-        (o_ref, lse_ref, pm_ref,
-         m_scr, l_scr, acc_scr, pmass_scr) = rest
-    q_idx = pl.program_id(2)
-    kv_idx = pl.program_id(3)
+        o_ref, lse_ref, pm_ref = rest
+    tile = n_tiles - 1 - pl.program_id(0)  # latest (heaviest) tiles first
+    tq = block_rows // group
+    q_start = qoff_ref[...] + tile * tq
+    qpos = q_start + jax.lax.div(jnp.arange(block_rows, dtype=jnp.int32),
+                                 group)
+    plen = plen_ref[...]
+    q = q_ref[...]
+    q = (q.astype(jnp.float32) * (sm_scale * LOG2E)).astype(q.dtype)
+    n_blocks = pl.cdiv(n_keys, block_k)
+    ragged = n_keys % block_k != 0
 
-    @pl.when(kv_idx == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-        pmass_scr[...] = jnp.zeros_like(pmass_scr)
-
-    k = k_ref[0, 0]                                   # [bk, d]
-    v = v_ref[0, 0]                                   # [bk, d]
-    plen = plen_ref[0]                                # [1, 1]
-    in_prompt_block = kv_idx * block_k < plen[0, 0]   # dynamic scalar
-    # Rectangular (chunked-prefill) mode: queries sit at GLOBAL positions
-    # q_offset + local_row — q_offset is a traced scalar so one compiled
-    # program serves every chunk of a bucket (models/llama.py chunked
-    # carry contract). Square mode keeps the offset at literal 0.
-    q_off = qoff_ref[0, 0] if rect else 0
-    if positioned:
-        col_ids = kpos_ref[0]                         # [1, bk] global pos
-    else:
-        col_ids = (jax.lax.broadcasted_iota(jnp.int32, (1, block_k), 1)
-                   + kv_idx * block_k)                # [1, bk]
-
-    if stats_via_mxu:
-        assert not positioned, "stats_via_mxu unsupported in positioned mode"
-        # Stats matrix S [bk, 128]: column 0 = ones (softmax denominator),
-        # column 1 = prompt indicator (prompt mass). One p @ S MXU pass
-        # per rep replaces BOTH [bq, bk] VPU reduction passes (sum + the
-        # masked prompt sum) — trading one N=128 matmul tile for two
-        # full-tile vector passes. Built once per grid step.
-        krow = (jax.lax.broadcasted_iota(jnp.int32, (block_k, 128), 0)
-                + kv_idx * block_k)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (block_k, 128), 1)
-        stats_mat = jnp.where(
-            lane == 0, 1.0,
-            jnp.where((lane == 1) & (krow < plen[0, 0]), 1.0, 0.0))
-
-    def _process(apply_causal: bool):
-        # Keep q/k/v in their input dtype for the dots (bf16 runs the MXU
-        # at native rate with f32 accumulation).
-        if apply_causal:
-            row_ids = (jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0)
-                       + (q_idx * block_q + q_off))   # [bq, 1] global rows
-            visible = col_ids <= row_ids              # one broadcast pass
-        scale2 = jnp.asarray(sm_scale * 1.4426950408889634, jnp.float32)
-        for r in range(n_rep):
-            rc = slice(r, r + 1)
-            # Fold sm_scale*log2(e) into the [bq,d] q tile: one cheap pass
-            # here replaces a [bq,bk] scale pass after the dot, and puts s
-            # in base-2 space so exp2 (no internal ln2 multiply) works.
-            q = (q_ref[0, r].astype(jnp.float32) * scale2).astype(
-                q_ref.dtype)                          # [bq, d]
-            s = jax.lax.dot_general(
-                q, k, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32)   # [bq, bk], base-2
-            if apply_causal:
-                s = jnp.where(visible, s, DEFAULT_MASK_VALUE)
-
-            m_prev = m_scr[:, rc]                     # [bq, 1]
-            l_prev = l_scr[:, rc]
-            m_curr = jnp.max(s, axis=1, keepdims=True)
-            m_next = jnp.maximum(m_prev, m_curr)
-            alpha = jnp.exp2(m_prev - m_next)
-            if exp_bf16:
-                # Probabilities in bf16: the exp2 runs on bf16 lanes (and p
-                # is already MXU-ready — no separate cast pass). s - m_next
-                # ∈ (-inf, 0], where bf16's 8-bit mantissa costs ~4e-3
-                # relative — the same order as the bf16 PV matmul below.
-                p = jnp.exp2((s - m_next).astype(jnp.bfloat16))  # [bq, bk]
+    def step(j, carry, with_mass: bool, masked: bool):
+        acc, m, l, pm = carry
+        start = j * block_k
+        kidx = start + jnp.arange(block_k, dtype=jnp.int32)
+        rows = pl.ds(start, block_k)
+        if ragged:
+            ok = (kidx < n_keys)[:, None]
+            k = plt.load(k_ref.at[rows, :], mask=ok, other=0.0)
+            v = plt.load(v_ref.at[rows, :], mask=ok, other=0.0)
+        else:
+            k = k_ref[rows, :]
+            v = v_ref[rows, :]
+        s = pl.dot(q, k, trans_b=True)                    # [rows, bk] f32
+        if positioned:
+            if ragged:
+                kp = plt.load(kpos_ref.at[rows], mask=kidx < n_keys,
+                              other=POS_SENTINEL)
             else:
-                p = jnp.exp2(s - m_next)              # [bq, bk]
-            if positioned:
-                # A row whose visible keys are ALL masked ends with
-                # m_next == MASK_VALUE and p == 1 at masked columns;
-                # zeroing p keeps l at 0 so finalize emits o=0/lse=-inf
-                # (the partial then vanishes in the lse merge).
-                p = jnp.where(visible, p, jnp.zeros((), p.dtype))
-            m_scr[:, rc] = m_next
-            if stats_via_mxu:
-                # One MXU tile computes BOTH the denominator contribution
-                # (S col 0) and the prompt mass (S col 1); bf16 p dots
-                # accumulate f32, matching the VPU path's precision.
-                stats = jax.lax.dot(p, stats_mat.astype(p.dtype),
-                                    preferred_element_type=jnp.float32)
-                l_curr = stats[:, 0:1]
-                l_scr[:, rc] = alpha * l_prev + l_curr
-                pmass_scr[:, rc] = (alpha * pmass_scr[:, rc]
-                                    + stats[:, 1:2])
+                kp = kpos_ref[rows]
+            visible = kp[None, :] <= qpos[:, None]
+            prompt = kp < plen
+        else:
+            if causal:
+                visible = kidx[None, :] <= qpos[:, None]
             else:
-                l_curr = jnp.sum(p, axis=1, keepdims=True,
-                                 dtype=jnp.float32)
-                l_scr[:, rc] = alpha * l_prev + l_curr
+                visible = (kidx < n_keys)[None, :]
+            prompt = kidx < plen
+        if masked:
+            s = jnp.where(visible, s, MASK_VALUE)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        alpha = jnp.exp2(m - m_new)
+        p = jnp.exp2(s - m_new[:, None])
+        if masked:
+            # A row with no visible key yet has m_new == MASK_VALUE and
+            # p == 1 at masked columns; zeroing keeps its l at 0.
+            p = jnp.where(visible, p, 0.0)
+        l = alpha * l + jnp.sum(p, axis=1)
+        pm = alpha * pm
+        if with_mass:
+            pm = pm + jnp.sum(jnp.where(prompt[None, :], p, 0.0), axis=1)
+        acc = acc * alpha[:, None] + pl.dot(p.astype(v.dtype), v)
+        return acc, m_new, l, pm
 
-                # Prompt-mass side-channel: the alpha rescale runs every
-                # block; the masked column sum only where the block
-                # overlaps the prompt prefix (causality is already in p
-                # via the mask value making exp ≈ 0).
-                pmass_scr[:, rc] = alpha * pmass_scr[:, rc]
-
-                # Positioned mode: prompt columns can sit in any block
-                # (slots are unordered) — the gate is always open there.
-                @pl.when(True if positioned else in_prompt_block)
-                def _prompt_contrib(rc=rc, p=p):
-                    contrib = jnp.sum(
-                        jnp.where(col_ids < plen, p,
-                                  jnp.zeros((), p.dtype)),
-                        axis=1, keepdims=True, dtype=jnp.float32)
-                    pmass_scr[:, rc] = pmass_scr[:, rc] + contrib
-
-            acc_scr[r] = acc_scr[r] * alpha + jax.lax.dot(
-                p.astype(v.dtype), v, preferred_element_type=jnp.float32)
-
+    d = q.shape[-1]
+    carry = (jnp.zeros((block_rows, d), jnp.float32),
+             jnp.full((block_rows,), -jnp.inf, jnp.float32),
+             jnp.zeros((block_rows,), jnp.float32),
+             jnp.zeros((block_rows,), jnp.float32))
+    loop = jax.lax.fori_loop
     if positioned:
-        # Pool slots are unordered: every block needs the per-element
-        # position compare, and no block can be skipped.
-        _process(apply_causal=True)
-    elif causal:
-        first_row = q_idx * block_q + q_off
-        last_row = first_row + block_q - 1
-        c0 = kv_idx * block_k
-        c1 = c0 + block_k - 1
-
-        # Interior: every column visible to every row — maskless fast path.
-        @pl.when(c1 <= first_row)
-        def _interior():
-            _process(apply_causal=False)
-
-        # Diagonal straddle: needs the causal select.
-        @pl.when((c1 > first_row) & (c0 <= last_row))
-        def _diag():
-            _process(apply_causal=True)
-        # c0 > last_row: block invisible, nothing runs (grid skip).
+        carry = loop(0, n_blocks, functools.partial(
+            step, with_mass=True, masked=True), carry)
     else:
-        # Ring-attention off-diagonal pair: all keys precede all queries.
-        _process(apply_causal=False)
+        if causal:
+            q_last = q_start + tq - 1
+            upper = jnp.minimum(jax.lax.div(q_last, block_k) + 1, n_blocks)
+            # Blocks [0, n_full) lie wholly below every row's diagonal.
+            n_full = jnp.minimum(jax.lax.div(q_start + 1, block_k), upper)
+        else:
+            upper = n_blocks
+            n_full = n_keys // block_k
+        n_prompt = jnp.minimum(jax.lax.div(plen + block_k - 1, block_k),
+                               upper)
+        mid_end = jnp.maximum(n_prompt, n_full)
+        carry = loop(0, n_prompt, functools.partial(
+            step, with_mass=True, masked=True), carry)
+        carry = loop(n_prompt, mid_end, functools.partial(
+            step, with_mass=False, masked=False), carry)
+        carry = loop(mid_end, upper, functools.partial(
+            step, with_mass=False, masked=True), carry)
+    acc, m, l, pm = carry
+    live = l > 0.0
+    inv = jnp.where(live, 1.0 / jnp.where(live, l, 1.0), 0.0)
+    o_ref[...] = (acc * inv[:, None]).astype(o_ref.dtype)
+    lse_ref[...] = jnp.where(live, (m + jnp.log2(jnp.where(live, l, 1.0)))
+                             * LN2, -jnp.inf)
+    pm_ref[...] = pm * inv
 
-    # Last kv block this q block needs: write normalized output.
-    if causal and not positioned:
-        last_kv = jnp.minimum((q_off + (q_idx + 1) * block_q - 1) // block_k,
-                              kv_blocks - 1)
-    else:
-        last_kv = kv_blocks - 1
 
-    @pl.when(kv_idx == last_kv)
-    def _finalize():
-        l = l_scr[...]                                    # [bq, n_rep]
-        l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-        for r in range(n_rep):
-            o_ref[0, r] = (acc_scr[r] * l_inv[:, r:r + 1]).astype(o_ref.dtype)
-        # lse/pm outputs are lane-major [n_rep, bq] (a [bq, 1] column per
-        # head would VMEM-pad to 128 lanes); transpose the small stat tiles.
-        # m is base-2; convert the lse output back to ln space.
-        lse = (m_scr[...] * 0.6931471805599453
-               + jnp.log(jnp.maximum(l, 1e-30)))
-        lse_ref[0, 0] = lse.T.astype(lse_ref.dtype)       # [n_rep, bq]
-        pm_ref[0, 0] = (pmass_scr[...] * l_inv).T.astype(pm_ref.dtype)
+def _flash(q: Array, k: Array, v: Array, plen: Array, q_offset,
+           causal: bool, k_pos: Optional[Array] = None,
+           block_rows: int = BLOCK_ROWS, block_k: int = BLOCK_K
+           ) -> Tuple[Array, Array, Array]:
+    """Run `_flash_kernel`.
 
+    q: [B, c, Hq, D] queries at global positions q_offset + t (causal) or
+    after every key (causal=False); k, v: [B, N, Hkv, D]; plen: [B] prompt
+    bound in key coordinates; k_pos: optional [B, N] key positions
+    (positioned mode; invalid slots carry POS_SENTINEL).
 
-def _flash_attention_bhsd(
-    q: Array, k: Array, v: Array, plens: Array, *, sm_scale: float,
-    block_q: int, block_k: int, interpret: bool, causal: bool = True,
-    fold_gqa: bool = True, exp_bf16: bool = False,
-    q_offset: Optional[Array] = None, stats_via_mxu: bool = False,
-    k_positions: Optional[Array] = None,
-) -> Tuple[Array, Array, Array]:
-    """Flash attention on [B, H, S, D] tensors (S divisible by blocks).
+    Returns (o [B, c, Hq, D] normalized, lse [B, Hq, c] natural log — -inf
+    on rows with no visible key —, pm [B, Hq, c] per-head normalized prompt
+    mass)."""
+    b, c, hq, d = q.shape
+    n, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if d < 16 or d & (d - 1):
+        raise ValueError(f"flash kernel needs a power-of-two head_dim >= 16, "
+                         f"got {d}")
+    # Fold the GQA group into the rows when it is a power of two that leaves
+    # at least one query position per tile; otherwise one head per program.
+    group = rep if (rep & (rep - 1)) == 0 and rep <= block_rows else 1
+    n_groups = hq // group
+    per_kv = rep // group
+    block_rows = min(block_rows, max(16, _next_pow2(c * group)))
+    block_rows = max(block_rows, group)
+    block_k = min(block_k, max(16, _next_pow2(n)))
+    tq = block_rows // group
+    n_tiles = -(-c // tq)
+    cp = n_tiles * tq
 
-    plens: [B, 1, 1] int32 per-row prompt lengths (of the KEY block, in the
-    key block's local coordinates).
-    causal=False computes full attention of every query over every key —
-    the ring-attention off-diagonal case (keys globally precede queries).
-    fold_gqa=True runs the whole GQA group per grid step (K/V DMA once per
-    group, head loop in-kernel); False runs one query head per grid step
-    (finer grid, K/V re-fetched per head) — kept as an autotunable A/B.
-    Returns (o [B,Hq,S,D], lse [B,Hq,S], pmass [B,Hq,S] — pmass normalized
-    by the softmax denominator, recoverable to unnormalized via exp(lse)).
-    """
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    n_rep = hq // hkv
-    nq = s // block_q
-    nkv = k.shape[2] // block_k
+    qg = q.reshape(b, c, n_groups, group, d)
+    if cp != c:
+        qg = jnp.pad(qg, ((0, 0), (0, cp - c), (0, 0), (0, 0), (0, 0)))
+    qg = qg.transpose(0, 2, 1, 3, 4).reshape(b, n_groups, cp * group, d)
+    plen = jnp.asarray(plen, jnp.int32).reshape(b)
+    qoff = jnp.asarray(q_offset, jnp.int32).reshape(())
 
-    if fold_gqa:
-        grid_h, rep, kmap = hkv, n_rep, (lambda g: g)
-    else:
-        grid_h, rep, kmap = hq, 1, (lambda g: g // n_rep)
-
-    rect = q_offset is not None
-    positioned = k_positions is not None
-    qoff = (jnp.zeros((1, 1), jnp.int32) if q_offset is None
-            else jnp.asarray(q_offset, jnp.int32).reshape(1, 1))
-    grid = (b, grid_h, nq, nkv)
-    kernel = functools.partial(
-        _flash_kernel, sm_scale=sm_scale, block_q=block_q, block_k=block_k,
-        kv_blocks=nkv, n_rep=rep, causal=causal, exp_bf16=exp_bf16,
-        rect=rect, stats_via_mxu=stats_via_mxu, positioned=positioned)
+    tile_of = lambda i: n_tiles - 1 - i
     in_specs = [
-            pl.BlockSpec((1, 1, 1), lambda b, g, qi, ki: (b, 0, 0)),
-            pl.BlockSpec((1, 1), lambda b, g, qi, ki: (0, 0)),
-            pl.BlockSpec((1, rep, block_q, d),
-                         lambda b, g, qi, ki: (b, g, qi, 0)),
-            pl.BlockSpec((1, 1, block_k, d),
-                         lambda b, g, qi, ki: (b, kmap(g), ki, 0)),
-            pl.BlockSpec((1, 1, block_k, d),
-                         lambda b, g, qi, ki: (b, kmap(g), ki, 0)),
+        pl.BlockSpec((None,), lambda i, bi, g: (bi,)),
+        pl.BlockSpec((), lambda i, bi, g: ()),
+        pl.BlockSpec((None, None, block_rows, d),
+                     lambda i, bi, g: (bi, g, tile_of(i), 0)),
+        pl.BlockSpec((None, n, None, d), lambda i, bi, g: (bi, 0, g // per_kv,
+                                                           0)),
+        pl.BlockSpec((None, n, None, d), lambda i, bi, g: (bi, 0, g // per_kv,
+                                                           0)),
     ]
-    operands = [q, k, v]
-    if positioned:
-        # [B, 1, N] with block (1, 1, block_k): Mosaic constrains only the
-        # LAST TWO block dims — (1, block_k) over [B, N] fails tiling at
-        # B > 1 (measured on HW, r5: "block shape (1, 512), array (8,
-        # 1024)"); the singleton middle dim makes the trailing dims
-        # (1, block_k) == (array dim, divisible) always.
-        in_specs.append(pl.BlockSpec((1, 1, block_k),
-                                     lambda b, g, qi, ki: (b, 0, ki)))
-        operands.append(k_positions[:, None, :])
+    operands = [plen, qoff, qg, k, v]
+    if k_pos is not None:
+        in_specs.append(pl.BlockSpec((None, n), lambda i, bi, g: (bi, 0)))
+        operands.append(k_pos.astype(jnp.int32))
+    row_spec = pl.BlockSpec((None, None, block_rows),
+                            lambda i, bi, g: (bi, g, tile_of(i)))
+    kernel = functools.partial(
+        _flash_kernel, sm_scale=1.0 / (d ** 0.5), group=group,
+        block_rows=block_rows, block_k=block_k, n_keys=n, n_tiles=n_tiles,
+        causal=causal, positioned=k_pos is not None)
     o, lse, pm = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(n_tiles, b, n_groups),
         in_specs=in_specs,
         out_specs=[
-            pl.BlockSpec((1, rep, block_q, d),
-                         lambda b, g, qi, ki: (b, g, qi, 0)),
-            pl.BlockSpec((1, 1, rep, block_q),
-                         lambda b, g, qi, ki: (b, g, 0, qi)),
-            pl.BlockSpec((1, 1, rep, block_q),
-                         lambda b, g, qi, ki: (b, g, 0, qi)),
+            pl.BlockSpec((None, None, block_rows, d),
+                         lambda i, bi, g: (bi, g, tile_of(i), 0)),
+            row_spec, row_spec,
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((b, hq, s, d), q.dtype),
-            jax.ShapeDtypeStruct((b, grid_h, rep, s), jnp.float32),
-            jax.ShapeDtypeStruct((b, grid_h, rep, s), jnp.float32),
+            jax.ShapeDtypeStruct((b, n_groups, cp * group, d), q.dtype),
+            jax.ShapeDtypeStruct((b, n_groups, cp * group), jnp.float32),
+            jax.ShapeDtypeStruct((b, n_groups, cp * group), jnp.float32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((block_q, rep), jnp.float32),
-            pltpu.VMEM((block_q, rep), jnp.float32),
-            pltpu.VMEM((rep, block_q, d), jnp.float32),
-            pltpu.VMEM((block_q, rep), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel",
-                                 "arbitrary"),
-        ),
-        interpret=interpret,
-    )(plens, qoff, *operands)
-    # [B, grid_h, rep, S] → [B, Hq, S] (kv-grouped heads are contiguous).
-    lse = lse.reshape(b, hq, s)
-    pm = pm.reshape(b, hq, s)
-    return o, lse, pm
+        compiler_params=plt.CompilerParams(num_warps=8 if d >= 128 else 4,
+                                           num_stages=NUM_STAGES),
+        backend="triton",
+        interpret=interpret_mode(),
+        name="flash_prompt_mass",
+    )(*operands)
+    o = (o.reshape(b, n_groups, cp, group, d).transpose(0, 2, 1, 3, 4)
+         .reshape(b, cp, hq, d)[:, :c])
+    stat = lambda x: (x.reshape(b, n_groups, cp, group).transpose(0, 1, 3, 2)
+                      .reshape(b, hq, cp)[:, :, :c])
+    return o, stat(lse), stat(pm)
+
+
+# ---------------------------------------------------------------------------
+# Square causal prefill: cuDNN (GPU) / XLA (CPU) + exact mass from the lse
+# ---------------------------------------------------------------------------
+
+def square_impl(dtype, head_dim: int) -> str:
+    """Which implementation the square causal prefill takes.
+
+    GPU: cuDNN's fused attention for bf16/fp16 at head_dim <= 128 (multiple
+    of 8), else the Triton kernel (float32, other power-of-two head dims).
+    CPU: XLA's attention (the tests' path). Any other case raises — never a
+    silent switch to the dense [S, S] form."""
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return "xla"
+    if backend != "gpu":
+        raise NotImplementedError(
+            f"flash prefill runs on 'gpu' (or 'cpu' for tests), not "
+            f"{backend!r}; use use_flash=False")
+    if (jnp.dtype(dtype) in (jnp.dtype(jnp.bfloat16), jnp.dtype(jnp.float16))
+            and head_dim % 8 == 0 and head_dim <= 128):
+        return "cudnn"
+    if head_dim >= 16 and head_dim & (head_dim - 1) == 0:
+        return "triton"
+    raise ValueError(f"no flash prefill for dtype {jnp.dtype(dtype)} and "
+                     f"head_dim {head_dim} on the GPU; use use_flash=False")
+
+
+def _attention_with_lse(q: Array, k: Array, v: Array, impl: str
+                        ) -> Tuple[Array, Array]:
+    """Causal attention output [B, S, Hq, D] and lse [B, Hq, S] (float32,
+    natural log) from cuDNN or XLA."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    if impl == "cudnn":
+        # The cuDNN wrapper under jax.nn.dot_product_attention: the public
+        # function rounds the lse to the input dtype, and a bf16 lse (8
+        # mantissa bits, spacing 0.06 at lse ~ 10) would put up to ~3% error
+        # on the mass. This one returns cuDNN's float32 softmax statistics.
+        from jax._src.cudnn.fused_attention_stablehlo import (
+            MaskType, dot_product_attention)
+        o, lse = dot_product_attention(q, k, v, scale=scale,
+                                       mask_type=MaskType.CAUSAL,
+                                       return_residual=True)
+        return o, lse.astype(jnp.float32)                  # lse [B, Hq, S]
+    # XLA (CPU): computed in float32 so the lse keeps full precision.
+    o, lse = jax.nn.dot_product_attention(
+        q.astype(jnp.float32), k.astype(jnp.float32), v.astype(jnp.float32),
+        scale=scale, is_causal=True, implementation="xla",
+        return_residual=True)
+    return o.astype(q.dtype), lse.transpose(0, 2, 1)       # [B, S, Hq] ->
+
+
+def prompt_mass_from_lse(q: Array, k: Array, lse: Array, prompt_len: int,
+                         prompt_lens: Optional[Array] = None) -> Array:
+    """Exact head-averaged causal prompt mass from the per-row lse.
+
+    q: [B, S, Hq, D]; k: [B, S, Hkv, D]; lse: [B, Hq, S] natural-log
+    log-sum-exp of each row's scaled scores. Only the first `prompt_len`
+    key columns are scored: O(S·P·D) per head. Returns [B, S] float32."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    p = min(prompt_len, s)
+    scale = 1.0 / (d ** 0.5)
+    q5 = q.reshape(b, s, hkv, rep, d)
+    scores = jnp.einsum("bshrd,bphd->bhrsp", q5, k[:, :p],
+                        preferred_element_type=jnp.float32) * scale
+    probs = jnp.exp(scores - lse.reshape(b, hkv, rep, s)[..., None])
+    col = jnp.arange(p)
+    keep = col[None, :] <= jnp.arange(s)[:, None]                 # [S, P]
+    if prompt_lens is not None:
+        keep = keep[None] & (col[None, None, :]
+                             < prompt_lens.astype(jnp.int32)[:, None, None])
+        keep = keep[:, None, None]                                # [B,1,1,S,P]
+    probs = jnp.where(keep, probs, 0.0)
+    return probs.sum(axis=-1).mean(axis=(1, 2))
 
 
 def flash_prefill_with_prompt_mass(
@@ -332,75 +330,33 @@ def flash_prefill_with_prompt_mass(
     k: Array,
     v: Array,
     prompt_len: int,
-    block_q: int = 512,
-    block_k: int = 1024,
-    interpret: Optional[bool] = None,
     prompt_lens: Optional[Array] = None,
-    fold_gqa: bool = True,
-    exp_bf16: bool = False,
-    stats_via_mxu: bool = False,
+    impl: Optional[str] = None,
 ) -> Tuple[Array, Array]:
-    """Causal flash attention + in-kernel prompt attention-mass side-channel.
+    """Causal prefill attention + prompt mass without an [S, S] matrix.
 
-    stats_via_mxu folds the denominator + prompt-mass reductions into one
-    p @ [ones | indicator] MXU tile per rep (kernel docstring) — an
-    autotunable A/B for d=128 shapes where the kernel sits near the
-    VPU/MXU balance point (34.9% of roof at the 7B GQA shape, r3).
-
-    Drop-in replacement for
-    `ops.attention.prefill_attention_with_prompt_mass` (same contract):
+    Drop-in for `ops.attention.prefill_attention_with_prompt_mass`.
 
     Args:
       q: [B, S, H_q, D]; k, v: [B, S, H_kv, D].
       prompt_len: static prompt prefix length P (upper bound for ragged
         batches).
       prompt_lens: optional [B] dynamic per-row prompt lengths <= P.
-      block_q/block_k: tile sizes (powers of two). Defaults (512, 1024)
-        measured fastest on TPU v5e at S=4096, d=64
-        (experiments/kernel_autotune.py sweep: 0.74 ms vs 5.38 ms at
-        256x256).
+      impl: "cudnn", "xla" or "triton"; None picks by backend, dtype and
+        shape (`square_impl`).
 
     Returns:
       out: [B, S, H_q, D]; prompt_mass: [B, S] float32 (head-averaged).
     """
-    if interpret is None:
-        interpret = _interpret_default()
     b, s, hq, d = q.shape
-    sm_scale = 1.0 / (d ** 0.5)
-
-    qt = q.transpose(0, 2, 1, 3)
-    kt = k.transpose(0, 2, 1, 3)
-    vt = v.transpose(0, 2, 1, 3)
-
-    if block_q & (block_q - 1) or block_k & (block_k - 1):
-        raise ValueError("block sizes must be powers of two")
-    block_q = min(block_q, max(8, 1 << (s - 1).bit_length()))
-    block_k = min(block_k, max(8, 1 << (s - 1).bit_length()))
-    # S must divide both blocks → pad to the larger (blocks are powers of
-    # two, so the smaller divides the larger).
-    pad = (-s) % max(block_q, block_k)
-    if pad:
-        # Zero-pad queries and keys; padded keys sit at positions > every
-        # real query, so the causal mask removes them from real rows.
-        qt = jnp.pad(qt, ((0, 0), (0, 0), (0, pad), (0, 0)))
-        kt = jnp.pad(kt, ((0, 0), (0, 0), (0, pad), (0, 0)))
-        vt = jnp.pad(vt, ((0, 0), (0, 0), (0, pad), (0, 0)))
-
-    if prompt_lens is None:
-        plens = jnp.full((b, 1, 1), prompt_len, jnp.int32)
-    else:
-        plens = prompt_lens.astype(jnp.int32).reshape(b, 1, 1)
-
-    o, _lse, pm = _flash_attention_bhsd(qt, kt, vt, plens,
-                                        sm_scale=sm_scale,
-                                        block_q=block_q, block_k=block_k,
-                                        interpret=interpret,
-                                        fold_gqa=fold_gqa,
-                                        exp_bf16=exp_bf16,
-                                        stats_via_mxu=stats_via_mxu)
-    o = o[:, :, :s]
-    pm = pm[:, :, :s]
-    return o.transpose(0, 2, 1, 3), pm.mean(axis=1)
+    impl = impl or square_impl(q.dtype, d)
+    if impl == "triton":
+        plens = (jnp.full((b,), prompt_len, jnp.int32) if prompt_lens is None
+                 else prompt_lens)
+        o, _lse, pm = _flash(q, k, v, plens, 0, causal=True)
+        return o, pm.mean(axis=1)
+    o, lse = _attention_with_lse(q, k, v, impl)
+    return o, prompt_mass_from_lse(q, k, lse, prompt_len, prompt_lens)
 
 
 def flash_chunk_attention_with_prompt_mass(
@@ -410,53 +366,24 @@ def flash_chunk_attention_with_prompt_mass(
     q_offset: Array,
     prompt_len: int,
     prompt_lens: Optional[Array] = None,
-    block_q: int = 512,
-    block_k: int = 1024,
-    interpret: Optional[bool] = None,
 ) -> Tuple[Array, Array]:
     """Flash form of `ops.attention.chunk_attention_with_prompt_mass`.
 
     Rectangular causal attention of one prefill CHUNK (queries at traced
     global positions q_offset..q_offset+c-1) over the position-ordered KV
-    buffer [B, S, H_kv, D] — without materializing the [c, S] score matrix
-    (the dense form allocates B*Hkv*rep*c*S f32: 68 GB at c=16K, S=32K —
-    the r4-sitting OOM this kernel fixes). q_offset rides a traced [1,1]
-    scalar into the kernel, so ONE compiled program serves every chunk of
-    a serving bucket. Buffer rows past the current fill hold later
-    positions and are causally invisible; zero-padded key rows (S padded to
-    block_k) likewise sit above every real query position.
+    buffer [B, S, H_kv, D] — without the [c, S] score matrix the dense form
+    allocates (B·Hq·c·S float32: 16 GiB per layer for a 4K chunk over a 32K
+    buffer at Mistral-7B widths). q_offset is traced, so ONE compiled
+    program serves every chunk of a bucket. Buffer rows past the current
+    fill hold later positions and are causally invisible.
 
-    Returns (out [B, c, H_q, D], prompt_mass [B, c] — identical semantics
-    to the dense chunk attention, token_importance.py:41-45 parity).
+    Returns (out [B, c, H_q, D], prompt_mass [B, c]).
     """
-    if interpret is None:
-        interpret = _interpret_default()
-    b, c, hq, d = q.shape
-    s = k_buf.shape[1]
-    sm_scale = 1.0 / (d ** 0.5)
-    qt = q.transpose(0, 2, 1, 3)
-    kt = k_buf.transpose(0, 2, 1, 3)
-    vt = v_buf.transpose(0, 2, 1, 3)
-    block_q = min(block_q, max(8, 1 << (c - 1).bit_length()))
-    block_k = min(block_k, max(8, 1 << (s - 1).bit_length()))
-    pad_q = (-c) % block_q
-    pad_k = (-s) % block_k
-    if pad_q:
-        qt = jnp.pad(qt, ((0, 0), (0, 0), (0, pad_q), (0, 0)))
-    if pad_k:
-        kt = jnp.pad(kt, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-        vt = jnp.pad(vt, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-    if prompt_lens is None:
-        plens = jnp.full((b, 1, 1), prompt_len, jnp.int32)
-    else:
-        plens = prompt_lens.astype(jnp.int32).reshape(b, 1, 1)
-    o, _lse, pm = _flash_attention_bhsd(
-        qt, kt, vt, plens, sm_scale=sm_scale, block_q=block_q,
-        block_k=block_k, interpret=interpret, causal=True,
-        q_offset=q_offset)
-    o = o[:, :, :c]
-    pm = pm[:, :, :c]
-    return o.transpose(0, 2, 1, 3), pm.mean(axis=1)
+    b = q.shape[0]
+    plens = (jnp.full((b,), prompt_len, jnp.int32) if prompt_lens is None
+             else prompt_lens)
+    o, _lse, pm = _flash(q, k_buf, v_buf, plens, q_offset, causal=True)
+    return o, pm.mean(axis=1)
 
 
 def flash_pair_attention(
@@ -465,57 +392,31 @@ def flash_pair_attention(
     v: Array,
     plen_local: Array,
     causal: bool,
-    block_q: int = 512,
-    block_k: int = 1024,
-    interpret: Optional[bool] = None,
 ) -> Tuple[Array, Array, Array]:
     """One (query block, key block) pair of blockwise/ring attention.
 
     The building block of sequence-parallel ring prefill (SURVEY.md §7.2
     Phase 4): each pair returns partial-softmax statistics that merge
-    exactly across pairs via the standard log-sum-exp combination — the
-    prompt-mass side-channel participates in the same rescale, so the
-    merged mass equals the single-device value.
+    exactly across pairs via the log-sum-exp combination — the prompt-mass
+    side-channel participates in the same rescale, so the merged mass
+    equals the single-device value.
 
     Args:
       q: [B, S_q, H_q, D] queries (RoPE'd at their global positions).
       k, v: [B, S_k, H_kv, D] one key block (same layout).
-      plen_local: [B] prompt length expressed in the KEY block's local
-        coordinates (clip(prompt_len - k_offset, 0, S_k)).
+      plen_local: [B] prompt length in the KEY block's local coordinates
+        (clip(prompt_len - k_offset, 0, S_k)).
       causal: True for the diagonal pair (q and k are the same block of the
         global sequence); False when the key block globally precedes every
-        query (full attention). S_q/S_k must be divisible by the clamped
-        block sizes (no padding in pair mode — padded keys would be
-        unmaskable in the non-causal case).
+        query (full attention).
 
     Returns:
       (o, lse, pmass): o [B, S_q, H_q, D] normalized partial output;
-      lse [B, H_q, S_q] log-sum-exp of this pair's scores; pmass
-      [B, H_q, S_q] PER-HEAD normalized prompt mass (the merge weights are
-      per-head, so averaging happens after merging). Rows with no visible
-      keys have lse = -inf and o = 0 (they vanish in the merge).
+      lse [B, H_q, S_q]; pmass [B, H_q, S_q] PER-HEAD normalized prompt mass
+      (the merge weights are per-head, so averaging happens after merging).
+      Rows with no visible keys have lse = -inf and o = 0.
     """
-    if interpret is None:
-        interpret = _interpret_default()
-    b, sq, hq, d = q.shape
-    sk = k.shape[1]
-    sm_scale = 1.0 / (d ** 0.5)
-    block_q = min(block_q, max(8, 1 << (sq - 1).bit_length()))
-    block_k = min(block_k, max(8, 1 << (sk - 1).bit_length()))
-    if sq % block_q or sk % block_k:
-        raise ValueError(
-            f"pair attention requires block-divisible shards: "
-            f"S_q={sq} %% {block_q}, S_k={sk} %% {block_k}")
-    plens = plen_local.astype(jnp.int32).reshape(b, 1, 1)
-    o, lse, pm = _flash_attention_bhsd(
-        q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
-        v.transpose(0, 2, 1, 3), plens, sm_scale=sm_scale,
-        block_q=block_q, block_k=block_k, interpret=interpret,
-        causal=causal)
-    return o.transpose(0, 2, 1, 3), lse, pm
-
-
-POS_SENTINEL = 1 << 30  # matches decode_attention / kv_cache convention
+    return _flash(q, k, v, plen_local, 0, causal=causal)
 
 
 def merge_attention_partials(parts):
@@ -523,11 +424,12 @@ def merge_attention_partials(parts):
 
     parts: sequence of (o [B, S, Hq, D], lse [B, Hq, S], pm [B, Hq, S])
     from flash_pair_attention / flash_positioned_attention over DISJOINT
-    key sets. Returns (out [B, S, Hq, D], pmass [B, S] head-averaged) —
-    identical math to the ring-attention merge (parallel/ring_attention.py).
+    key sets. Returns (out [B, S, Hq, D], pmass [B, Hq, S]) — identical math
+    to the ring-attention merge (parallel/ring_attention.py).
     """
     lse_all = jnp.stack([p[1] for p in parts])          # [T, B, Hq, S]
     m = jnp.max(lse_all, axis=0)
+    m = jnp.where(jnp.isfinite(m), m, 0.0)
     w = jnp.exp(lse_all - m[None])
     w_sum = jnp.maximum(w.sum(axis=0), 1e-30)
     o_all = jnp.stack([p[0].astype(jnp.float32) for p in parts])
@@ -546,17 +448,14 @@ def flash_positioned_attention(
     k_pos: Array,
     q_offset: Array,
     prompt_len: int,
-    block_q: int = 256,
-    block_k: int = 512,
-    interpret: Optional[bool] = None,
 ) -> Tuple[Array, Array, Array]:
     """Flash attention of chunk queries over POSITIONED key slots.
 
     The pool half of compressed-prefix chunked prefill: keys are compressed
     pool slots at arbitrary global positions (invalid slots folded to
     POS_SENTINEL by the caller); visibility is k_pos <= q_offset+row and
-    the prompt indicator is k_pos < prompt_len — all per-element inside
-    the kernel, no [c, N] score materialization.
+    the prompt indicator is k_pos < prompt_len — per element inside the
+    kernel, which loads the key positions itself.
 
     Args:
       q: [B, c, H_q, D]; k, v: [B, N, H_kv, D] dequantized pool slots.
@@ -566,38 +465,10 @@ def flash_positioned_attention(
 
     Returns (o [B, c, Hq, D] normalized partial, lse [B, Hq, c],
     pm [B, Hq, c]) for `merge_attention_partials`.
-
-    Default blocks are half the square kernel's (256x512): positioned mode
-    carries an extra live [bq, bk] masked-p temp per rep, which at
-    512x1024 rep=8 overflowed the 16 MB scoped-vmem budget (measured on
-    HW, r5 sitting: 23.89M scoped).
     """
-    if interpret is None:
-        interpret = _interpret_default()
-    b, c, hq, d = q.shape
-    n = k.shape[1]
-    sm_scale = 1.0 / (d ** 0.5)
-    qt = q.transpose(0, 2, 1, 3)
-    kt = k.transpose(0, 2, 1, 3)
-    vt = v.transpose(0, 2, 1, 3)
-    block_q = min(block_q, max(8, 1 << (c - 1).bit_length()))
-    block_k = min(block_k, max(8, 1 << (n - 1).bit_length()))
-    pad_q = (-c) % block_q
-    pad_k = (-n) % block_k
-    if pad_q:
-        qt = jnp.pad(qt, ((0, 0), (0, 0), (0, pad_q), (0, 0)))
-    if pad_k:
-        kt = jnp.pad(kt, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-        vt = jnp.pad(vt, ((0, 0), (0, 0), (0, pad_k), (0, 0)))
-        k_pos = jnp.pad(k_pos, ((0, 0), (0, pad_k)),
-                        constant_values=POS_SENTINEL)
-    plens = jnp.full((b, 1, 1), prompt_len, jnp.int32)
-    o, lse, pm = _flash_attention_bhsd(
-        qt, kt, vt, plens, sm_scale=sm_scale, block_q=block_q,
-        block_k=block_k, interpret=interpret, causal=True,
-        q_offset=q_offset, k_positions=k_pos.astype(jnp.int32))
-    return (o[:, :, :c].transpose(0, 2, 1, 3), lse[:, :, :c],
-            pm[:, :, :c])
+    b = q.shape[0]
+    return _flash(q, k, v, jnp.full((b,), prompt_len, jnp.int32), q_offset,
+                  causal=True, k_pos=k_pos)
 
 
 def flash_compressed_prefix_attention(
@@ -610,11 +481,6 @@ def flash_compressed_prefix_attention(
     v_chunk: Array,
     q_offset: Array,
     prompt_len: int,
-    block_q: int = 512,
-    block_k: int = 1024,
-    pool_block_q: int = 256,
-    pool_block_k: int = 512,
-    interpret: Optional[bool] = None,
 ) -> Tuple[Array, Array]:
     """Chunk attention over {compressed pools} ++ {own chunk}, flash form.
 
@@ -626,14 +492,13 @@ def flash_compressed_prefix_attention(
 
     Returns (out [B, c, Hq, D], prompt_mass [B, c]).
     """
-    b, c, hq, d = q.shape
+    b, c = q.shape[:2]
     kpos = jnp.where(valid_pool, pos_pool, POS_SENTINEL)
-    part_pool = flash_positioned_attention(
-        q, k_pool, v_pool, kpos, q_offset, prompt_len,
-        block_q=pool_block_q, block_k=pool_block_k, interpret=interpret)
+    part_pool = flash_positioned_attention(q, k_pool, v_pool, kpos, q_offset,
+                                           prompt_len)
     plen_local = jnp.clip(prompt_len - q_offset, 0, c)
-    part_self = flash_pair_attention(
-        q, k_chunk, v_chunk, jnp.broadcast_to(plen_local, (b,)),
-        causal=True, block_q=block_q, block_k=block_k, interpret=interpret)
+    part_self = flash_pair_attention(q, k_chunk, v_chunk,
+                                     jnp.broadcast_to(plen_local, (b,)),
+                                     causal=True)
     out, pm = merge_attention_partials([part_pool, part_self])
     return out.astype(q.dtype), pm.mean(axis=1)

@@ -142,7 +142,7 @@ def pack_codes(codes: Array, bits: int, axis: int = -3,
     Strided token-axis packing: with R = ceil(N / (8/bits)) byte rows, token
     j*R + r lives in byte row r at bit offset j*bits. Unpacking is then pure
     shift + mask + concatenate along the sublane axis — no interleaving data
-    movement — which is exactly what the fused TPU decode kernel wants
+    movement — which is exactly what the packed-cache decode kernel wants
     (channel-axis packing would need a lane reshuffle; interleaved packing
     would need an element-repeat).
 

@@ -7,7 +7,7 @@ jit-safe function designed to live INSIDE the scanned decode program
 (models/llama.decode_loop): all filters are static-shape masks over the
 logits row — no data-dependent shapes, no host round trips.
 
-TPU notes:
+Notes:
   * top-k uses `jax.lax.top_k` only to find the k-th value (a [B, k]
     reduction), then masks the full row — no gather/scatter of the vocab.
   * top-p sorts the row once (XLA's bitonic sort on the vocab lane axis) and

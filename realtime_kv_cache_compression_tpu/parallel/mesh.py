@@ -4,8 +4,9 @@ No reference counterpart (the reference is single-process single-GPU,
 SURVEY.md §2.6) — this is the north-star-mandated scale-out layer. Axes:
   data  — batch/data parallelism (continuous batching shards requests here)
   model — tensor parallelism over attention heads / MLP hidden / vocab
-Collectives ride ICI within a slice; XLA inserts and overlaps them from the
-sharding annotations.
+XLA inserts the collectives from the sharding annotations (NCCL on GPUs);
+the cards of one host are joined all to all, so the mesh follows the
+algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """Pipeline parallelism over a `pipe` mesh axis.
 
 SURVEY.md §2.6 marks pipeline parallelism "optional — no reference
-counterpart" (the reference is single-GPU, single-process). Two TPU-native
-forms live here, chosen per use case:
+counterpart" (the reference is single-GPU, single-process). Two forms live here, chosen per use case:
 
 1. `pipeline_train_step` / `pipeline_lm_loss` — **GPipe-style SPMD
    schedule** for training: layers stacked and split over the `pipe` axis
@@ -19,7 +18,7 @@ forms live here, chosen per use case:
    0.8/0.6/0.4 layer-group ratios — an SPMD single-program pipeline would
    force every stage to the worst-case capacity, forfeiting the memory win;
    per-stage programs keep it). Activations hop stages via `device_put`
-   (ICI transfers); dispatch is async, so microbatches overlap across
+   (device-to-device transfers); dispatch is async, so microbatches overlap across
    stages in a wavefront. Decode traverses stages sequentially per token —
    the standard PP-inference latency tradeoff; serving should prefer
    tensor parallelism (parallel/sharding.py) and sequence parallelism

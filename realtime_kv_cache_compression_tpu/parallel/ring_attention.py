@@ -5,29 +5,29 @@ North-star component (SURVEY.md §7.2 Phase 4, §5 "long-context"): the
 reference handles long context only by *truncating the data*
 (/root/reference/src/utils/data_utils.py:154-168); here the prefill
 sequence axis shards across devices, K/V blocks rotate around the ring
-with `ppermute`, and each (query-shard, key-block) pair runs the Pallas
-flash kernel (ops/pallas/flash_prefill.flash_pair_attention). Partial
+with `ppermute`, and each (query-shard, key-block) pair runs the flash
+kernel (ops/pallas/flash_prefill.flash_pair_attention). Partial
 softmax statistics merge with the standard log-sum-exp combination; the
 prompt attention mass participates in the same per-head rescale, so the
 merged mass — and therefore importance scoring, selection, and the
 compressed caches — is EXACT w.r.t. the single-device computation.
 
-Design notes (TPU):
+Design notes:
   * Block skip is control flow over *values*: every shard traces the same
     program; pairs whose key block lies entirely in a query's future run
     a `lax.cond` skip branch that returns neutral statistics (lse = -inf).
   * The diagonal pair (t = 0) is statically causal; all rotated pairs
     (t > 0) are statically non-causal (visible iff the key block precedes
     the query block) — so the kernel's `causal` flag stays trace-time
-    static, as Mosaic requires.
+    static (it selects the kernel's program).
   * Work per shard: S_loc x S_global scores blockwise — the same FLOPs as
     single-device flash split n ways, with no S x S materialization and
-    only K/V-block ppermutes (2 * S_loc * H_kv * D per step) on the ICI.
+    only K/V-block ppermutes (2 * S_loc * H_kv * D per step) between
+    devices.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import jax
@@ -38,8 +38,8 @@ Array = jax.Array
 NEG_INF = -jnp.inf
 
 
-def _neutral_pair(b, s_loc, hq, d):
-    return (jnp.zeros((b, s_loc, hq, d), jnp.float32),
+def _neutral_pair(b, s_loc, hq, d, dtype):
+    return (jnp.zeros((b, s_loc, hq, d), dtype),
             jnp.full((b, hq, s_loc), NEG_INF, jnp.float32),
             jnp.zeros((b, hq, s_loc), jnp.float32))
 
@@ -51,9 +51,6 @@ def ring_prefill_attention(
     prompt_len: int,
     axis_name: str,
     n_shards: int,
-    block_q: int = 512,
-    block_k: int = 1024,
-    interpret: Optional[bool] = None,
     prompt_lens: Optional[Array] = None,
 ) -> Tuple[Array, Array]:
     """Causal flash attention + prompt mass with the sequence axis sharded.
@@ -81,8 +78,7 @@ def ring_prefill_attention(
     my = jax.lax.axis_index(axis_name)
     q_off = my * s_loc
 
-    pair = functools.partial(_pair_fn(), block_q=block_q,
-                             block_k=block_k, interpret=interpret)
+    from ..ops.pallas.flash_prefill import flash_pair_attention as pair
 
     os, lses, pms = [], [], []
     kk, vv = k, v
@@ -99,7 +95,7 @@ def ring_prefill_attention(
                 k_off < q_off,
                 lambda args: pair(args[0], args[1], args[2], args[3],
                                   causal=False),
-                lambda args: _neutral_pair(b, s_loc, hq, d),
+                lambda args: _neutral_pair(b, s_loc, hq, d, q.dtype),
                 (q, kk, vv, plen_b))
         os.append(o.astype(jnp.float32))
         lses.append(lse)
@@ -121,8 +117,3 @@ def ring_prefill_attention(
     pm_all = jnp.stack(pms)                        # [T, B, Hq, S]
     pm_merged = (pm_all * w).sum(axis=0) / w_sum   # [B, Hq, S]
     return out.astype(q.dtype), pm_merged.mean(axis=1)
-
-
-def _pair_fn():
-    from ..ops.pallas.flash_prefill import flash_pair_attention
-    return flash_pair_attention

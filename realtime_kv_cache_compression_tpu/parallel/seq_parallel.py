@@ -1,7 +1,7 @@
 """Sequence-parallel compressed prefill: the full model forward with the
 prefill sequence axis sharded over a `seq` mesh axis.
 
-This is the TPU answer to long contexts the reference could only truncate
+This is the answer to long contexts the reference could only truncate
 (/root/reference/src/utils/data_utils.py:154-168): activations (the
 residual stream) live sharded [B, S/n, H]; attention runs as ring flash
 attention with the exact prompt-mass side-channel
@@ -50,9 +50,6 @@ def seq_parallel_prefill(
     ccfg: CompressionConfig,
     mesh: Mesh,
     max_decode_len: int = 128,
-    block_q: int = 512,
-    block_k: int = 1024,
-    interpret: Optional[bool] = None,
     sharded_compression: bool = False,
     lengths: Optional[Array] = None,
 ) -> Tuple[Array, "DecodeState", List[Dict[str, Array]]]:
@@ -60,8 +57,7 @@ def seq_parallel_prefill(
 
     Semantics match `models.llama.prefill_compressed`: same logits, same
     compressed caches, same stats — verified to fp32 tolerance in
-    tests/test_seq_parallel.py. S must divide the axis size, and S/n must
-    be divisible by the clamped flash block sizes.
+    tests/test_seq_parallel.py. S must divide the axis size.
 
     `lengths` ([B] true row lengths, right-padded bucket) enables RAGGED
     batches (VERDICT r4 weak #8): each shard's compression budget follows
@@ -135,7 +131,6 @@ def seq_parallel_prefill(
             k = llama.apply_rope(k, cos, sin)
             attn_out, pmass_loc = ring_prefill_attention(
                 q, k, v, prompt_len, SEQ_AXIS, n_seq,
-                block_q=block_q, block_k=block_k, interpret=interpret,
                 prompt_lens=prompt_lens_g)
 
             gpos = q_off + jnp.arange(s_loc)

@@ -488,6 +488,9 @@ def main(argv: Optional[List[str]] = None):
                         "their suffix (<= this many tokens)")
     p.add_argument("--no-flash", action="store_true")
     args = p.parse_args(argv)
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     presets = {"tinyllama": C.TINYLLAMA_1_1B, "llama2-7b": C.LLAMA2_7B,
                "mistral-7b": C.MISTRAL_7B, "qwen2-0.5b": C.QWEN2_0_5B,

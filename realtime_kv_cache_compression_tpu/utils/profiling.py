@@ -1,6 +1,6 @@
 """Profiling hooks: jax.profiler trace capture + per-phase wall accounting.
 
-TPU counterpart of the reference's wall-clock-only instrumentation
+Counterpart of the reference's wall-clock-only instrumentation
 (SURVEY.md §5 "Tracing/profiling"): `PerformanceTimer` covers named walls
 (eval/metrics.py); this adds XLA-level traces viewable in TensorBoard /
 Perfetto and a context manager for annotated trace regions.

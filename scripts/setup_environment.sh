@@ -1,9 +1,9 @@
 #!/usr/bin/env bash
 # Environment setup (reference scripts/setup_environment.sh parity).
 #
-# The reference script creates a venv and pip-installs torch+cu124; on TPU
-# hosts the runtime (jax/libtpu) ships with the VM image, so this script
-# VERIFIES the toolchain instead of installing it, and prepares the same
+# The reference script creates a venv and pip-installs torch+cu124; here the
+# runtime (jax with its CUDA plugin) is expected to be installed, so this
+# script VERIFIES the toolchain instead of installing it, and prepares the same
 # directory layout the experiment CLIs write into. It never touches the
 # network (works in zero-egress environments).
 set -euo pipefail
@@ -23,8 +23,8 @@ for mod in ("jax", "jaxlib", "numpy", "optax", "orbax.checkpoint",
         missing.append(mod)
 if missing:
     sys.exit("missing required packages: " + ", ".join(missing)
-             + "\nOn TPU VMs: pip install 'jax[tpu]' optax orbax-checkpoint"
-               " safetensors matplotlib")
+             + "\nOn a GPU host: pip install 'jax[cuda12]' optax "
+               "orbax-checkpoint safetensors matplotlib")
 
 import jax
 print("jax", jax.__version__, "backend:", jax.default_backend(),

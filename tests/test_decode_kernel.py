@@ -1,4 +1,5 @@
-"""Fused dequant-decode attention kernel vs the XLA dequant path."""
+"""Split-K packed-cache decode kernel (interpret mode on CPU) vs the XLA
+dequant path, and the rule that picks between them."""
 
 import jax
 import jax.numpy as jnp
@@ -59,8 +60,7 @@ def test_fused_matches_xla(rng, tier_mode):
                              low_precision_bits=2, tier_mode=tier_mode)
     q, cache, recent, q_pos, ccfg = build_state(rng, mcfg=mcfg, ccfg=ccfg)
     ref = xla_reference(q, cache, recent, q_pos, ccfg)
-    out = fused_decode_attention(q, cache, recent, q_pos, ccfg,
-                                 interpret=True)
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
 
 
@@ -70,8 +70,7 @@ def test_fused_mha_single_rep(rng):
     q, cache, recent, q_pos, ccfg = build_state(rng, hq=4, hkv=4, d=16,
                                                 mcfg=mcfg)
     ref = xla_reference(q, cache, recent, q_pos, ccfg)
-    out = fused_decode_attention(q, cache, recent, q_pos, ccfg,
-                                 interpret=True)
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
 
 
@@ -82,8 +81,7 @@ def test_fused_16bit_tier(rng):
                              low_precision_bits=4)
     q, cache, recent, q_pos, ccfg = build_state(rng, mcfg=mcfg, ccfg=ccfg)
     ref = xla_reference(q, cache, recent, q_pos, ccfg)
-    out = fused_decode_attention(q, cache, recent, q_pos, ccfg,
-                                 interpret=True)
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
 
 
@@ -92,8 +90,7 @@ def test_fused_empty_recent(rng):
     mcfg = tiny_test_model(num_kv_heads=2, num_heads=4, head_dim=32)
     q, cache, recent, q_pos, ccfg = build_state(rng, n_recent=0, mcfg=mcfg)
     ref = xla_reference(q, cache, recent, q_pos, ccfg)
-    out = fused_decode_attention(q, cache, recent, q_pos, ccfg,
-                                 interpret=True)
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
 
 
@@ -110,8 +107,7 @@ def test_multi_segment_chunked_matches_xla(rng, chunk):
     # Multi-segment check: at least one tier spans > 1 chunk.
     assert any(t.capacity > chunk for t in cache.tiers)
     ref = xla_reference(q, cache, recent, q_pos, ccfg)
-    out = fused_decode_attention(q, cache, recent, q_pos, ccfg,
-                                 interpret=True)
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
 
 
@@ -123,26 +119,25 @@ def test_chunked_16bit_tier(rng):
     q, cache, recent, q_pos, ccfg = build_state(rng, s=128, mcfg=mcfg,
                                                 ccfg=ccfg)
     ref = xla_reference(q, cache, recent, q_pos, ccfg)
-    out = fused_decode_attention(q, cache, recent, q_pos, ccfg,
-                                 interpret=True)
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
 
 
-@pytest.mark.parametrize("group_size", [8, 16])
+@pytest.mark.parametrize("group_size", [16, 32])
 def test_fused_group_scales(rng, group_size):
     """quant_group_size < head_dim (finer scale groups — the quality knob
-    config.py advertises) now runs through the fused kernel (VERDICT #4
-    killed the NotImplementedError)."""
-    mcfg = tiny_test_model(num_kv_heads=2, num_heads=4, head_dim=32)
+    config.py advertises) runs through the kernel as column slices of
+    head_dim, each with its own rank-1 correction."""
+    mcfg = tiny_test_model(num_kv_heads=2, num_heads=4, head_dim=64)
     ccfg = CompressionConfig(num_layers=mcfg.num_layers,
                              high_precision_bits=8, medium_precision_bits=4,
                              low_precision_bits=2,
                              quant_group_size=group_size)
-    q, cache, recent, q_pos, ccfg = build_state(rng, mcfg=mcfg, ccfg=ccfg)
-    assert cache.tiers[0].k_scale.shape[-1] == 32 // group_size
+    q, cache, recent, q_pos, ccfg = build_state(rng, d=64, mcfg=mcfg,
+                                                ccfg=ccfg)
+    assert cache.tiers[0].k_scale.shape[-1] == 64 // group_size
     ref = xla_reference(q, cache, recent, q_pos, ccfg)
-    out = fused_decode_attention(q, cache, recent, q_pos, ccfg,
-                                 interpret=True)
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-5)
 
 
@@ -163,3 +158,38 @@ def test_decode_step_use_fused_matches(rng):
                                    use_fused=True)
     np.testing.assert_allclose(np.asarray(l_fused), np.asarray(l_ref),
                                atol=1e-4)
+
+
+def test_group_scales_below_16_columns_rejected(rng):
+    """Scale groups narrower than the kernel's 16-column dot go to the XLA
+    path: the kernel raises instead of computing them."""
+    mcfg = tiny_test_model(num_kv_heads=2, num_heads=4, head_dim=32)
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers, quant_group_size=8)
+    q, cache, recent, q_pos, ccfg = build_state(rng, mcfg=mcfg, ccfg=ccfg)
+    with pytest.raises(ValueError):
+        fused_decode_attention(q, cache, recent, q_pos, ccfg)
+
+
+class TestResolveFusedDecode:
+    """use_fused=None: the kernel on the GPU for shapes it takes and state
+    on one device; the XLA path on the CPU (never the interpreter), over a
+    mesh, and for narrow scale groups."""
+
+    def test_cpu_never_interprets(self):
+        cfg = tiny_test_model(head_dim=32)
+        assert not llama.resolve_fused_decode(cfg, CompressionConfig())
+
+    def test_gpu_picks_kernel(self, monkeypatch):
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        cfg = tiny_test_model(head_dim=128)
+        assert llama.resolve_fused_decode(cfg, CompressionConfig())
+        assert llama.resolve_fused_decode(
+            cfg, CompressionConfig(quant_group_size=32))
+
+    def test_gpu_xla_for_mesh_and_narrow_groups(self, monkeypatch):
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        cfg = tiny_test_model(head_dim=128)
+        assert not llama.resolve_fused_decode(cfg, CompressionConfig(),
+                                              mesh=object())
+        assert not llama.resolve_fused_decode(
+            cfg, CompressionConfig(quant_group_size=8))

@@ -150,8 +150,7 @@ def test_fused_decode_with_pool_matches_xla(rng):
         jnp.concatenate([pos_c, recent.positions, pos_p], axis=1),
         jnp.concatenate([valid_c, rec_valid, valid_p], axis=1),
         q_pos)
-    out = fused_decode_attention(q, cache, recent, q_pos, ccfg,
-                                 interpret=True, pool=pool)
+    out = fused_decode_attention(q, cache, recent, q_pos, ccfg, pool=pool)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=2e-4, atol=2e-5)
 

@@ -153,23 +153,19 @@ def test_int4_logits_track_fp_on_tiny_model():
     assert c8 > c4, f"precision ladder inverted: int8 {c8} <= int4 {c4}"
 
 
-class TestFusedInt4Kernel:
-    """ops/pallas/int4_matmul.py (interpret mode on CPU): the fused
-    unpack+dequant matmul must match Int4Tensor.dequantize math exactly.
-    Round-4 fix for the measured 16x int4 decode regression (RESULTS.md r3:
-    XLA materialized the unpacked weight at 2 bytes/element)."""
+class TestInt4XlaMatmul:
+    """The grouped-einsum int4 matmul (llama._matmul, the only int4 path)
+    must match Int4Tensor.dequantize math at the shapes the removed fused
+    kernel was checked at: grouped, batch-1 decode, single group, padded
+    and multi-block reductions."""
 
-    def _check(self, m, k, n, group_size, seed=0, block_kwargs=None):
-        from realtime_kv_cache_compression_tpu.ops.pallas.int4_matmul import (
-            int4_matmul)
+    def _check(self, m, k, n, group_size, seed=0):
         rng = np.random.default_rng(seed)
         w = jnp.asarray(rng.normal(size=(k, n)).astype(np.float32))
         x = jnp.asarray(rng.normal(size=(m, k)).astype(np.float32))
         t = quantize_tensor_int4(w, group_size=group_size)
         want = np.asarray(x @ t.dequantize(jnp.float32))
-        got = np.asarray(int4_matmul(x, t.q_packed, t.scale, t.group_size,
-                                     interpret=True,
-                                     **(block_kwargs or {})))
+        got = np.asarray(llama._matmul(x, t))
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
     def test_grouped_parity(self):
@@ -182,19 +178,12 @@ class TestFusedInt4Kernel:
         self._check(4, 100, 40, group_size=128)  # falls back to one group
 
     def test_padding_paths(self):
-        # K/2 = 192 not divisible by block_k2=128 after clamping to whole
-        # groups (gs=64 -> block 128 ok, pad 192->256); N=72 pads to 128.
-        self._check(3, 384, 72, group_size=64,
-                    block_kwargs=dict(block_k2=128, block_n=128))
+        self._check(3, 384, 72, group_size=64)
 
     def test_multi_kblock_accumulation(self):
-        self._check(5, 1024, 96, group_size=128,
-                    block_kwargs=dict(block_k2=128))
+        self._check(5, 1024, 96, group_size=128)
 
-    def test_matmul_dispatch_cpu_uses_xla(self):
-        # On CPU llama._matmul keeps the XLA grouped-einsum form; parity of
-        # that path against dequantize is covered above and in
-        # test_matmul_matches_dequantized_reference.
+    def test_matmul_leading_dims(self):
         rng = np.random.default_rng(7)
         w = jnp.asarray(rng.normal(size=(256, 64)).astype(np.float32))
         x = jnp.asarray(rng.normal(size=(2, 3, 256)).astype(np.float32))

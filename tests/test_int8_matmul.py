@@ -1,4 +1,4 @@
-"""int8 x int8 MXU matmul kernel tests (interpret mode on CPU)."""
+"""W8A8 int8 x int8 matmul (XLA dot_general with int32 accumulation)."""
 
 import jax
 import jax.numpy as jnp
@@ -10,23 +10,24 @@ from realtime_kv_cache_compression_tpu import (CompressionConfig,
 from realtime_kv_cache_compression_tpu.models import llama
 from realtime_kv_cache_compression_tpu.models.quantized_params import (
     quantize_params, quantize_tensor)
-from realtime_kv_cache_compression_tpu.ops.pallas.int8_matmul import (
-    dynamic_int8_matmul, int8_matmul, int8_matmul_xla, quantize_activations)
+from realtime_kv_cache_compression_tpu.ops.int8_matmul import (
+    dynamic_int8_matmul, int8_matmul, quantize_activations)
 
 
-def test_kernel_matches_xla_exactly(rng):
-    """The Pallas kernel computes the same int32 accumulation + scaling as
-    the XLA reference (bit-exact in f32)."""
-    m, k, n = 24, 128, 256
-    x_q = jnp.asarray(rng.integers(-127, 128, size=(m, k)).astype(np.int8))
-    w_q = jnp.asarray(rng.integers(-127, 128, size=(k, n)).astype(np.int8))
-    xs = jnp.asarray(rng.random(m).astype(np.float32)) + 0.01
-    ws = jnp.asarray(rng.random(n).astype(np.float32)) + 0.01
-    ref = int8_matmul_xla(x_q, w_q, xs, ws, out_dtype=jnp.float32)
-    out = int8_matmul(x_q, w_q, xs, ws, out_dtype=jnp.float32,
-                      block_m=16, block_n=128, block_k=64, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-6, atol=1e-6)
+@pytest.mark.parametrize("m,k,n", [(24, 128, 256), (1, 4096, 96),
+                                   (7, 100, 33)])
+def test_int8_matmul_exact_integer_accumulation(rng, m, k, n):
+    """The int32 accumulation is exact: it matches an int64 numpy product
+    scaled per row and column."""
+    x_q = rng.integers(-127, 128, size=(m, k)).astype(np.int8)
+    w_q = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+    xs = rng.random(m).astype(np.float32) + 0.01
+    ws = rng.random(n).astype(np.float32) + 0.01
+    want = (x_q.astype(np.int64) @ w_q.astype(np.int64)).astype(np.float32)
+    want = want * xs[:, None] * ws[None, :]
+    out = int8_matmul(jnp.asarray(x_q), jnp.asarray(w_q), jnp.asarray(xs),
+                      jnp.asarray(ws), out_dtype=jnp.float32)
+    np.testing.assert_allclose(np.asarray(out), want, rtol=1e-6, atol=1e-6)
 
 
 def test_dynamic_matmul_approximates_dense(rng):
@@ -36,10 +37,23 @@ def test_dynamic_matmul_approximates_dense(rng):
     w = jnp.asarray(rng.normal(size=(64, 128)).astype(np.float32))
     qt = quantize_tensor(w, axis=1)
     ref = x @ w
-    out = dynamic_int8_matmul(x, qt.q, qt.scale, interpret=True)
+    out = dynamic_int8_matmul(x, qt.q, qt.scale)
     err = np.abs(np.asarray(out, np.float32) - np.asarray(ref))
     scale = np.abs(np.asarray(ref)).mean()
     assert err.mean() / scale < 0.02, (err.mean(), scale)
+
+
+def test_dynamic_matmul_leading_dims(rng):
+    """[..., K] activations keep their leading dims and dtype."""
+    x = jnp.asarray(rng.normal(size=(2, 3, 64)).astype(np.float32))
+    qt = quantize_tensor(jnp.asarray(rng.normal(size=(64, 48)), jnp.float32),
+                         axis=1)
+    out = dynamic_int8_matmul(x.astype(jnp.bfloat16), qt.q, qt.scale)
+    assert out.shape == (2, 3, 48) and out.dtype == jnp.bfloat16
+    flat = dynamic_int8_matmul(x.reshape(6, 64).astype(jnp.bfloat16), qt.q,
+                               qt.scale)
+    np.testing.assert_array_equal(np.asarray(out.reshape(6, 48), np.float32),
+                                  np.asarray(flat, np.float32))
 
 
 def test_quantize_activations_roundtrip(rng):

@@ -6,7 +6,7 @@ virtual CPU devices each) joined by jax.distributed — cross-process
 collectives ride Gloo, the zero-egress stand-in for DCN — and verify the
 sharded compressed model and the continuous-batching engine are
 token-identical to the single-process paths. The identical code runs on
-multi-host TPU pods with only platform flags changed.
+multi-host clusters with only platform flags changed.
 """
 
 import pytest

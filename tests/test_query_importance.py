@@ -202,7 +202,7 @@ class TestModelIntegration:
         ids = jax.random.randint(jax.random.PRNGKey(3), (1, 64), 0,
                                  mcfg.vocab_size)
         logits, state, stats = seq_parallel.seq_parallel_prefill(
-            params, ids, mcfg, ccfg, mesh, max_decode_len=4, interpret=True)
+            params, ids, mcfg, ccfg, mesh, max_decode_len=4)
         assert logits.shape == (1, mcfg.vocab_size)
         assert bool(jnp.isfinite(logits).all())
         assert len(stats) == mcfg.num_layers

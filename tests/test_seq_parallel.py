@@ -45,7 +45,7 @@ def test_ring_attention_matches_dense(rng, n_seq):
     mesh = create_seq_mesh(n_seq)
     fn = jax.shard_map(
         lambda q, k, v: ring_prefill_attention(
-            q, k, v, prompt_len, SEQ_AXIS, n_seq, interpret=True),
+            q, k, v, prompt_len, SEQ_AXIS, n_seq),
         mesh=mesh,
         in_specs=(P(None, SEQ_AXIS), P(None, SEQ_AXIS), P(None, SEQ_AXIS)),
         out_specs=(P(None, SEQ_AXIS), P(None, SEQ_AXIS)),
@@ -69,7 +69,7 @@ def test_seq_parallel_prefill_matches_single_device(n_seq):
 
     mesh = create_seq_mesh(n_seq)
     logits_n, state_n, stats_n = seq_parallel_prefill(
-        params, ids, MCFG, ccfg, mesh, max_decode_len=8, interpret=True)
+        params, ids, MCFG, ccfg, mesh, max_decode_len=8)
 
     np.testing.assert_allclose(np.asarray(logits_n), np.asarray(logits_1),
                                rtol=1e-4, atol=1e-4)
@@ -106,8 +106,7 @@ def test_seq_parallel_then_decode():
 
     mesh = create_seq_mesh(4)
     logits_n, state_n, _ = seq_parallel_prefill(params, ids, MCFG, ccfg,
-                                                mesh, max_decode_len=12,
-                                                interpret=True)
+                                                mesh, max_decode_len=12)
     tok_n = jnp.argmax(logits_n, axis=-1)
     toks_n, _ = llama.decode_loop(params, tok_n, state_n, 10, MCFG, ccfg)
     np.testing.assert_array_equal(np.asarray(toks_1), np.asarray(toks_n))
@@ -179,7 +178,7 @@ def test_seq_parallel_query_guided_matches_single_device(source,
 
     mesh = create_seq_mesh(n_seq)
     logits_n, state_n, stats_n = seq_parallel_prefill(
-        params, ids, MCFG, ccfg, mesh, max_decode_len=8, interpret=True,
+        params, ids, MCFG, ccfg, mesh, max_decode_len=8,
         sharded_compression=sharded_comp)
 
     np.testing.assert_allclose(np.asarray(logits_n), np.asarray(logits_1),

@@ -152,7 +152,7 @@ def test_sharded_serving_slot_validation(engine_parts):
 def test_warmup_compiles_every_admission_batch(engine_parts):
     """warmup() must drive one admission at every reachable padded batch
     size WITH DISTINCT PROMPTS (identical prompts dedupe to one prefill
-    row — the round-3 sitting's warmup flaw, ADVICE r3) and leave no
+    row — a same-prompt warmup never compiles them) and leave no
     serving state behind."""
     eng = make_engine(engine_parts, num_slots=4, prefix_cache_size=4)
     info = eng.warmup()

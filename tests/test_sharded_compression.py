@@ -63,7 +63,7 @@ def test_sharded_equals_chunked_reference(setup, n):
     mesh = create_seq_mesh(n)
 
     logits_sh, state_sh, stats_sh = seq_parallel_prefill(
-        params, ids, mcfg, ccfg, mesh, max_decode_len=8, interpret=True,
+        params, ids, mcfg, ccfg, mesh, max_decode_len=8,
         sharded_compression=True)
 
     # Single-device reference: full prefill activations, chunked compression.
@@ -123,7 +123,7 @@ def test_sharded_cache_is_actually_sharded(setup):
     n = 4
     mesh = create_seq_mesh(n)
     _, state, _ = seq_parallel_prefill(params, ids, mcfg, ccfg, mesh,
-                                       max_decode_len=8, interpret=True,
+                                       max_decode_len=8,
                                        sharded_compression=True)
     t = state.caches[0].tiers[0]
     if t.capacity == 0:
@@ -140,7 +140,7 @@ def test_decode_from_sharded_state(setup):
     n = 2
     mesh = create_seq_mesh(n)
     logits, state, _ = seq_parallel_prefill(params, ids, mcfg, ccfg, mesh,
-                                            max_decode_len=8, interpret=True,
+                                            max_decode_len=8,
                                             sharded_compression=True)
     assert np.isfinite(np.asarray(logits)).all()
 
@@ -245,7 +245,7 @@ def test_ragged_seq_parallel_prefill_matches_single_device(setup):
                                            lengths=lengths)
     mesh = create_seq_mesh(4)
     lgn, stn, _ = seq_parallel_prefill(params, ids, mcfg, ccfg, mesh,
-                                       max_decode_len=8, interpret=True,
+                                       max_decode_len=8,
                                        lengths=lengths)
     np.testing.assert_allclose(np.asarray(lgn, np.float32),
                                np.asarray(lg1, np.float32),
@@ -275,7 +275,7 @@ def test_ragged_query_guided_seq_parallel(setup):
                                            lengths=lengths)
     mesh = create_seq_mesh(4)
     lgn, stn, _ = seq_parallel_prefill(params, ids, mcfg, ccfg_q, mesh,
-                                       max_decode_len=8, interpret=True,
+                                       max_decode_len=8,
                                        lengths=lengths)
     np.testing.assert_allclose(np.asarray(lgn, np.float32),
                                np.asarray(lg1, np.float32),

@@ -149,7 +149,7 @@ def test_ragged_prompts_and_batch(rng):
 
 
 def test_jit_compiles_once(rng):
-    """The whole loop jits (while_loop, static shapes) — the TPU contract."""
+    """The whole loop jits (while_loop, static shapes) — the jit contract."""
     params, ids, ccfg, state, first = setup(rng, batch=1, s=64)
 
     @jax.jit
