@@ -16,7 +16,6 @@ The last line is {"ok": true, "device": {...}} as JAX reports the device.
 
     python chip_smoke.py                # one card
     python chip_smoke.py --four-cards   # only the four-card phase
-    python chip_smoke.py --tiny         # CPU rehearsal at toy sizes
 
 With --four-cards it runs only the multi-card paths (tensor-parallel
 prefill + decode, and sequence-parallel prefill with sharded compression),
@@ -45,45 +44,32 @@ MASS_TOL = 5e-3    # prompt mass: a float32 sum of probabilities in [0, 1]
 # plain bf16 XLA path's own distance from the float32 reference: at most
 # twice that, and never tighter than 1e-2 relative L2.
 FLOOR_FACTOR, FLOOR_MIN = 2.0, 1e-2
+# Compressed vs uncompressed prefill in float32 at HIGHEST precision: the
+# programs differ only in what reads K/V, so they agree to float32
+# rounding; 1e-3 sits far below compression's own effect (the control).
+SAME_PROGRAM_TOL = 1e-3
 
 
 @dataclasses.dataclass(frozen=True)
 class Sizes:
-    """Shapes of one run; `full()` is the card run, `tiny()` the CPU
-    rehearsal of the same code paths."""
+    """Shapes of the card run: Mistral-7B published widths."""
 
-    layers: int
-    hidden: int
-    mlp: int
-    heads: int
-    kv_heads: int
-    head_dim: int
-    vocab: int
-    seq: int            # kernel parity + main-path prompt length
-    long_seq: int       # 32K-class parity shapes
-    decode_batch: int
-    decode_steps: int
-    serve_layers: int
-    serve_ctx: int
-    serve_prompts: tuple
-    seq_parallel: int   # four-card sequence-parallel prompt length
-    four_layers: int    # depth of the four-card model (widths stay full)
-
-    @staticmethod
-    def full():
-        return Sizes(layers=32, hidden=4096, mlp=14336, heads=32, kv_heads=8,
-                     head_dim=128, vocab=32000, seq=4096, long_seq=32768,
-                     decode_batch=8, decode_steps=32, serve_layers=8,
-                     serve_ctx=4096, serve_prompts=(256, 1000, 2048, 3000),
-                     seq_parallel=16384, four_layers=8)
-
-    @staticmethod
-    def tiny():
-        return Sizes(layers=2, hidden=128, mlp=256, heads=8, kv_heads=4,
-                     head_dim=32, vocab=512, seq=256, long_seq=512,
-                     decode_batch=2, decode_steps=4, serve_layers=2,
-                     serve_ctx=128, serve_prompts=(16, 40, 70, 100),
-                     seq_parallel=256, four_layers=2)
+    layers: int = 32
+    hidden: int = 4096
+    mlp: int = 14336
+    heads: int = 32
+    kv_heads: int = 8
+    head_dim: int = 128
+    vocab: int = 32000
+    seq: int = 4096            # kernel parity + main-path prompt length
+    long_seq: int = 32768      # 32K-class parity shapes
+    decode_batch: int = 8
+    decode_steps: int = 32
+    serve_layers: int = 8
+    serve_ctx: int = 4096
+    serve_prompts: tuple = (256, 1000, 2048, 3000)
+    seq_parallel: int = 16384  # four-card sequence-parallel prompt length
+    four_layers: int = 8       # depth of the four-card model (widths full)
 
 
 def log(msg: str) -> None:
@@ -106,26 +92,32 @@ def rel_l2(got, want) -> float:
     return float(np.linalg.norm(g - w) / np.linalg.norm(w))
 
 
-def check_vs_f32(name: str, got, bf16_ref, f32_ref) -> float:
-    """Gate `got` against the float32 reference at the bf16 noise floor
-    (the plain bf16 path's own error). Returns the floor."""
-    floor = rel_l2(bf16_ref, f32_ref)
-    log(f"  {name}: bf16 XLA path vs float32 reference (relative L2) "
-        f"{floor:.3e}; vs each other {rel_l2(got, bf16_ref):.3e}")
+def check_vs_f32(name: str, got, base, f32_ref,
+                 base_name: str = "one-card bf16 path") -> None:
+    """Gate `got` against the float32 reference at the bf16 noise floor:
+    the distance of `base`, a plain bf16 run of the same model, from it."""
+    floor = rel_l2(base, f32_ref)
+    log(f"  {name}: {base_name} vs float32 reference (relative L2) "
+        f"{floor:.3e}; vs each other {rel_l2(got, base):.3e}")
     check(f"{name} vs float32 reference (relative L2)", rel_l2(got, f32_ref),
           max(FLOOR_FACTOR * floor, FLOOR_MIN),
           f"<= max({FLOOR_FACTOR:g} x bf16 floor, {FLOOR_MIN:g})")
-    return floor
 
 
-def f32_prefill_logits(params, ids, mcfg):
-    """Last-position logits with float32 activations and HIGHEST matmul
-    precision over the same (bf16) weights: dense uncompressed prefill."""
+def f32_prefill_logits(params, ids, mcfg, ccfg=None):
+    """Last-position logits with float32 activations, HIGHEST matmul
+    precision and dense XLA attention over the same (bf16) weights: the
+    uncompressed prefill, or the compressed one when `ccfg` is given."""
     from realtime_kv_cache_compression_tpu.models import llama
 
     cfg32 = dataclasses.replace(mcfg, dtype="float32")
     with jax.default_matmul_precision("highest"):
-        fn = jax.jit(lambda p, i: llama.prefill_uncompressed(p, i, cfg32)[0])
+        if ccfg is None:
+            fn = jax.jit(lambda p, i: llama.prefill_uncompressed(
+                p, i, cfg32)[0])
+        else:
+            fn = jax.jit(lambda p, i: llama.prefill_compressed(
+                p, i, cfg32, ccfg, max_decode_len=8)[0])
         return fn(params, ids)
 
 
@@ -165,8 +157,7 @@ def phase_kernels(z: Sizes, seed: int) -> None:
     square = jax.jit(fp.flash_prefill_with_prompt_mass, static_argnums=3)
     for name, (hq, hkv, d) in (("mistral", (z.heads, z.kv_heads,
                                             z.head_dim)),
-                               ("tinyllama", (32, 4, 64) if z.head_dim > 32
-                                else (8, 2, 16))):
+                               ("tinyllama", (32, 4, 64))):
         s = z.seq
         q, k, v = (rand_bf16(next(keys), (1, s, h, d))
                    for h in (hq, hkv, hkv))
@@ -311,12 +302,28 @@ def phase_main(z: Sizes, seed: int, params, mcfg) -> None:
     dense = jax.jit(lambda p, i: llama.prefill_uncompressed(p, i, mcfg)[0])
     logits_u = dense(params, ids)
     logits_32 = f32_prefill_logits(params, ids, mcfg)
-    check_vs_f32("logits: compressed flash prefill (bf16, "
-                 "recompute_prefill_attention=False)", logits, logits_u,
-                 logits_32)
+    check_vs_f32("logits: flash prefill (bf16)", logits, logits_u, logits_32,
+                 base_name="dense XLA bf16 prefill")
     log(f"  argmax agree with float32: flash "
         f"{bool(jnp.argmax(logits) == jnp.argmax(logits_32))}, dense bf16 "
         f"{bool(jnp.argmax(logits_u) == jnp.argmax(logits_32))}")
+    # With recompute_prefill_attention=False the prefill attends over the
+    # full K/V and compression only reads it, so compression must not alter
+    # the logits. Checked in float32: two separately compiled bf16 programs
+    # round differently, and 32 random-weight layers carry that to a few
+    # per cent of the logits.
+    check("logits: compressed vs uncompressed prefill (float32 HIGHEST, "
+          "dense attention; relative L2)",
+          rel_l2(f32_prefill_logits(params, ids, mcfg, ccfg), logits_32),
+          SAME_PROGRAM_TOL, "compression must not alter prefill outputs")
+    # Control: a prefill whose outputs compression does alter (attention
+    # recomputed over the compressed cache) shows what each limit rejects.
+    ccfg_r = dataclasses.replace(ccfg, recompute_prefill_attention=True)
+    ctrl = rel_l2(f32_prefill_logits(params, ids, mcfg, ccfg_r), logits_32)
+    log(f"  control, recompute_prefill_attention=True (float32): "
+        f"{ctrl:.3e} from the uncompressed float32 logits (limits: "
+        f"{SAME_PROGRAM_TOL:g} compressed vs uncompressed, the float32 "
+        f"gate above for flash)")
 
     from realtime_kv_cache_compression_tpu.compression import (
         summarize_layer_stats)
@@ -427,6 +434,7 @@ def phase_four_cards(z: Sizes, seed: int) -> None:
 
     # 1. Tensor parallel: weights and packed cache head-sharded over 4.
     log("phase 4c-1: tensor-parallel (data=1, model=4) prefill + decode")
+    t_tp = time.perf_counter()
     mesh = create_mesh(data=1, model=4, devices=devs[:4])
     sharded = shard_params(params, mesh, mcfg)
     wq = sharded["layers"][0]["wq"]
@@ -456,8 +464,8 @@ def phase_four_cards(z: Sizes, seed: int) -> None:
         raise AssertionError("packed cache is not head-sharded over four "
                              "devices")
     logits_1, state_1, toks_1 = run(params, None)
-    floor = check_vs_f32("TP prefill logits", logits_tp, logits_1,
-                         f32_prefill_logits(params, ids, mcfg))
+    check_vs_f32("TP prefill logits", logits_tp, logits_1,
+                 f32_prefill_logits(params, ids, mcfg))
     # One decode step from the same token over the same cache (the one-card
     # state, laid out on the mesh like the TP state): greedy paths of a
     # random-weight bf16 model may part at near-ties, and two prefills may
@@ -482,6 +490,7 @@ def phase_four_cards(z: Sizes, seed: int) -> None:
     if not bool(((np.asarray(toks_tp) >= 0)
                  & (np.asarray(toks_tp) < mcfg.vocab_size)).all()):
         raise AssertionError("TP decode produced invalid token ids")
+    log(f"  tensor-parallel phase: {time.perf_counter() - t_tp:.1f} s")
     del sharded, state_tp
 
     # 2. Sequence parallel with fully sharded compression.
@@ -493,9 +502,13 @@ def phase_four_cards(z: Sizes, seed: int) -> None:
     seq_mesh = create_seq_mesh(4, devices=devs[:4])
     replicated = jax.device_put(params, jax.sharding.NamedSharding(
         seq_mesh, jax.sharding.PartitionSpec()))
+    t0 = time.perf_counter()
     logits_sp, state_sp, _ = seq_parallel_prefill(
         replicated, ids_sp, mcfg, ccfg, seq_mesh, max_decode_len=8,
         sharded_compression=True)
+    logits_sp = jax.block_until_ready(logits_sp)
+    log(f"  seq-parallel prefill (compile + run): "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = state_sp.caches[0].tiers[0].k_stored
     shard = t0.addressable_shards[0].data.shape
     log(f"  cache k_stored {t0.shape} on {len(t0.sharding.device_set)} "
@@ -503,15 +516,35 @@ def phase_four_cards(z: Sizes, seed: int) -> None:
     if len(t0.sharding.device_set) != 4 or shard[1] * 4 != t0.shape[1]:
         raise AssertionError("cache slot axis is not sharded over four "
                              "devices")
+    del replicated, state_sp
+    t0 = time.perf_counter()
     logits_1, _, _ = jax.jit(lambda p, i: llama.prefill_compressed(
         p, i, mcfg, ccfg, max_decode_len=8, use_flash=True))(params, ids_sp)
-    # A dense float32 reference does not fit at this length; hold the
-    # ring-merged bf16 logits to the one-card bf16 flash prefill at the
-    # bf16 floor measured above.
-    check("seq-parallel logits vs one-card prefill_compressed (relative L2)",
-          rel_l2(logits_sp, logits_1), max(FLOOR_FACTOR * floor, FLOOR_MIN),
-          f"<= max({FLOOR_FACTOR:g} x bf16 floor at {z.seq}, "
-          f"{FLOOR_MIN:g})")
+    logits_32 = f32_chunked_logits(params, ids_sp, mcfg, chunk=s // 16)
+    log(f"  one-card prefill + float32 reference: "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_vs_f32("seq-parallel logits", logits_sp, logits_1, logits_32)
+
+
+def f32_chunked_logits(params, ids, mcfg, chunk):
+    """Last-position logits with float32 activations, HIGHEST precision and
+    the dense XLA chunk attention, one chunk of queries at a time over the
+    growing K/V buffer: the float32 reference at lengths where one dense
+    [S, S] score matrix does not fit."""
+    from realtime_kv_cache_compression_tpu import CompressionConfig
+    from realtime_kv_cache_compression_tpu.models import llama
+
+    cfg32 = dataclasses.replace(mcfg, dtype="float32")
+    ccfg = CompressionConfig(num_layers=mcfg.num_layers)
+    b, s = ids.shape
+    with jax.default_matmul_precision("highest"):
+        step = jax.jit(lambda p, i, st: llama.prefill_chunked_step(
+            p, i, st, cfg32, ccfg))
+        st = llama.prefill_chunked_init(b, s, cfg32)
+        for off in range(0, s, chunk):
+            st = step(params, ids[:, off:off + chunk], st)
+        return jax.jit(lambda p, h: llama.logits_from_hidden(p, h, cfg32))(
+            params, st.last_h)
 
 
 # ---------------------------------------------------------------------------
@@ -530,13 +563,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--four-cards", action="store_true",
                     help="run only the four-card phase")
-    ap.add_argument("--tiny", action="store_true",
-                    help="CPU rehearsal at toy sizes (prints no result)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     dev = jax.devices()[0]
-    if dev.platform != "gpu" and not args.tiny:
+    if dev.platform != "gpu":
         print(f"no GPU: JAX found {dev.platform!r} devices; chip_smoke.py "
               f"runs only on the card", file=sys.stderr)
         return 1
@@ -546,10 +577,10 @@ def main(argv=None) -> int:
         card_info, device_record)
 
     log(f"compile cache: {enable_compile_cache()}")
-    z = Sizes.tiny() if args.tiny else Sizes.full()
+    z = Sizes()
     rec = device_record()
     log(f"phase 1: device {rec}")
-    card = "cpu rehearsal" if args.tiny else card_info()
+    card = card_info()
     log(f"  card: {card}")
 
     t_all = time.perf_counter()
@@ -566,13 +597,9 @@ def main(argv=None) -> int:
         log("phase 4: HTTP serving")
         phase_serving(z, params, mcfg)
         del params
-        if not args.tiny:
-            log("phase 5: card-only tests")
-            phase_card_tests()
+        log("phase 5: card-only tests")
+        phase_card_tests()
     log(f"all phases passed in {time.perf_counter() - t_all:.0f} s")
-    if args.tiny:
-        log("rehearsal passed (CPU, toy sizes): no device result")
-        return 0
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": rec}), flush=True)
     return 0

@@ -229,14 +229,16 @@ def seq_parallel_prefill(
         out_specs = (P(), state_spec, P())
     else:
         out_specs = P()
+    # Under jit: a shard_map called eagerly dispatches (and on the GPU
+    # compiles) every primitive of the per-shard program one at a time.
     if lengths is None:
         fn = jax.shard_map(
             lambda p, i: local_fn(p, i, None, None), mesh=mesh,
             in_specs=(P(), P(None, SEQ_AXIS)), out_specs=out_specs,
             check_vma=False)
-        return fn(params, input_ids)
+        return jax.jit(fn)(params, input_ids)
     fn = jax.shard_map(local_fn, mesh=mesh,
                        in_specs=(P(), P(None, SEQ_AXIS), P(), P()),
                        out_specs=out_specs,
                        check_vma=False)
-    return fn(params, input_ids, lengths, prompt_lens_g)
+    return jax.jit(fn)(params, input_ids, lengths, prompt_lens_g)

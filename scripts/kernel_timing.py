@@ -1,13 +1,17 @@
 """Time each hand-written kernel against what XLA (or cuDNN) makes of the
 plain version, on the GPU, at Mistral-7B attention widths.
 
-    python scripts/kernel_timing.py [--out chiprun_out/kernel_timing.json]
+    python scripts/kernel_timing.py [--out kernel_timing.json]
 
-Every time is the median over repeated calls of one jitted function, on
-the host clock around `block_until_ready`, after a warm-up call. Prints
-one line per comparison and writes all numbers, with the card's name and
-power limit, to --out. The decisions in PERF.md ("Kernel decisions on the
-H100") come from this script.
+Every host time is the median over repeated calls of one jitted function,
+on the host clock around `block_until_ready`, after a warm-up call. The
+decode rows (one layer, the row-block/program-count sweep that chose the
+decode kernel's defaults, and whole decode steps) also carry the device
+time per call, summed from a profiler trace of the card's streams: at
+~100 µs a call the host clock measures dispatch as much as the kernel.
+Prints one line per comparison and writes all numbers, with the card's
+name and power limit, to --out. The decisions in PERF.md ("Kernel
+decisions on the H100") come from this script.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ def attention_flops(hq, d, rows, keys_seen):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default="chiprun_out/kernel_timing.json")
+    ap.add_argument("--out", default="kernel_timing.json")
     args = ap.parse_args()
     dev = require_gpu()
     enable_compile_cache()
@@ -194,9 +198,19 @@ def _decode_state(b, s, mcfg, ccfg, key):
     return cache, recent
 
 
+def rate(nbytes, seconds):
+    """GB/s, or None where the trace held no device time."""
+    return nbytes / seconds / 1e9 if seconds else None
+
+
 def cache_bytes(cache, recent):
     leaves = jax.tree_util.tree_leaves((cache, recent))
     return sum(x.nbytes for x in leaves)
+
+
+# (ROW_BLOCK, TARGET_PROGRAMS) pairs swept for the decode kernel; the
+# module's defaults are the pair that won here.
+DECODE_SWEEP = ((64, 264), (32, 264), (64, 528), (128, 264))
 
 
 def decode_rows(row, keys):
@@ -210,6 +224,7 @@ def decode_rows(row, keys):
 
     mcfg = MISTRAL_7B
     ccfg = CompressionConfig(num_layers=32)
+    defaults = (da.ROW_BLOCK, da.TARGET_PROGRAMS)
     for b, s in ((1, 4096), (8, 32768)):
         cache, recent = _decode_state(b, s, mcfg, ccfg, next(keys))
         q = rnd(next(keys), (b, 1, 32, 128))
@@ -226,14 +241,23 @@ def decode_rows(row, keys):
                 jnp.concatenate([valid_c, live], 1), q_pos)
 
         nbytes = cache_bytes(cache, recent)
-        t_x = bench(jax.jit(xla), q, cache, recent)
-        f = jax.jit(lambda q, c, r: da.fused_decode_attention(q, c, r, q_pos,
-                                                             ccfg))
-        t_k = bench(f, q, cache, recent)
-        row(f"decode layer B={b} ctx={s} [triton split-K]", us=t_k * 1e6,
-            packed_bytes=nbytes, gb_s=nbytes / t_k / 1e9)
-        row(f"decode layer B={b} ctx={s} [xla dequant]", us=t_x * 1e6,
-            packed_bytes=nbytes, gb_s=nbytes / t_x / 1e9)
+        for rb, progs in DECODE_SWEEP:
+            # The kernel reads both at trace time; a new jit retraces.
+            da.ROW_BLOCK, da.TARGET_PROGRAMS = rb, progs
+            f = jax.jit(lambda q, c, r: da.fused_decode_attention(
+                q, c, r, q_pos, ccfg))
+            t_k = bench(f, q, cache, recent)
+            dev_k, _ = device_time(f, q, cache, recent)
+            row(f"decode layer B={b} ctx={s} [triton rb={rb} progs={progs}]",
+                host_us=t_k * 1e6, device_us=dev_k * 1e6,
+                packed_bytes=nbytes, device_gb_s=rate(nbytes, dev_k))
+        da.ROW_BLOCK, da.TARGET_PROGRAMS = defaults
+        f = jax.jit(xla)
+        t_x = bench(f, q, cache, recent)
+        dev_x, _ = device_time(f, q, cache, recent)
+        row(f"decode layer B={b} ctx={s} [xla dequant]", host_us=t_x * 1e6,
+            device_us=dev_x * 1e6, packed_bytes=nbytes,
+            device_gb_s=rate(nbytes, dev_x))
 
 
 def decode_e2e(row, keys):
@@ -244,6 +268,7 @@ def decode_e2e(row, keys):
     mcfg = dataclasses.replace(MISTRAL_7B, num_layers=4)
     ccfg = CompressionConfig(num_layers=4)
     params = llama.init_params(jax.random.PRNGKey(1), mcfg)
+    steps = 32
     for b, s in ((1, 4096), (8, 32768)):
         ids = jax.random.randint(next(keys), (b, s), 0, mcfg.vocab_size)
         logits, state, _ = jax.jit(lambda p, i: llama.prefill_compressed(
@@ -252,11 +277,19 @@ def decode_e2e(row, keys):
         out = {}
         for fused in (True, False):
             f = jax.jit(lambda p, t, st, fused=fused: llama.decode_loop(
-                p, t, st, 32, mcfg, ccfg, use_fused=fused)[0])
-            out[fused] = bench(f, params, tok, state, reps=5) / 32
+                p, t, st, steps, mcfg, ccfg, use_fused=fused)[0])
+            host = bench(f, params, tok, state, reps=5) / steps
+            dev, top = device_time(f, params, tok, state, reps=3)
+            out[fused] = (host, dev / steps, top)
         row(f"decode loop 4 layers B={b} ctx={s}",
-            fused_ms_per_step=out[True] * 1e3,
-            xla_ms_per_step=out[False] * 1e3)
+            fused_host_ms_per_step=out[True][0] * 1e3,
+            fused_device_ms_per_step=out[True][1] * 1e3,
+            xla_host_ms_per_step=out[False][0] * 1e3,
+            xla_device_ms_per_step=out[False][1] * 1e3,
+            fused_top_ops_us_per_step=[(k, v / steps)
+                                       for k, v in out[True][2]],
+            xla_top_ops_us_per_step=[(k, v / steps)
+                                     for k, v in out[False][2]])
 
 
 def int4_trace(row, keys):
@@ -289,31 +322,43 @@ def int4_trace(row, keys):
             temp_bytes=getattr(mem, "temp_size_in_bytes", None),
             gb_s_layer_weights=wbytes / t / 1e9)
         if bits == 4:
-            import tempfile
-            d = tempfile.mkdtemp(dir="chiprun_out") if os.path.isdir(
-                "chiprun_out") else tempfile.mkdtemp()
-            with jax.profiler.trace(d):
-                for _ in range(3):
-                    jax.block_until_ready(comp(p, tok, state))
-            top = trace_top(d)
-            row("int4 decode step trace: top device ops", ops=top)
+            _, top = device_time(comp, p, tok, state, reps=3)
+            row("int4 decode step trace: top device ops (us per step)",
+                ops=top)
 
 
-def trace_top(d, n=12):
+def device_time(fn, *args, reps=10, n_top=12):
+    """(device seconds per call, top device ops as [name, µs per call])
+    from a profiler trace of `reps` calls: kernel time summed over the
+    card's streams, so the host's dispatch gaps are not counted."""
     import glob
-    path = glob.glob(os.path.join(d, "plugins", "profile", "*",
-                                  "*.xplane.pb"))[0]
-    pd = jax.profiler.ProfileData.from_file(path)
+    import shutil
+    import tempfile
+
+    jax.block_until_ready(fn(*args))
+    d = tempfile.mkdtemp()
+    try:
+        with jax.profiler.trace(d):
+            for _ in range(reps):
+                jax.block_until_ready(fn(*args))
+        path = glob.glob(os.path.join(d, "plugins", "profile", "*",
+                                      "*.xplane.pb"))[0]
+        pd = jax.profiler.ProfileData.from_file(path)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     tot = {}
     for plane in pd.planes:
         if "/device:GPU" not in plane.name:
             continue
         for line in plane.lines:
+            if not line.name.startswith("Stream"):
+                continue
             for ev in line.events:
-                key = f"{line.name}: {ev.name}"
-                tot[key] = tot.get(key, 0) + ev.duration_ns
-    return sorted(((k, v / 3e3) for k, v in tot.items()),
-                  key=lambda kv: -kv[1])[:n]
+                tot[ev.name] = tot.get(ev.name, 0) + ev.duration_ns
+    total_s = sum(tot.values()) / 1e9 / reps
+    top = sorted(((k, v / 1e3 / reps) for k, v in tot.items()),
+                 key=lambda kv: -kv[1])[:n_top]
+    return total_s, top
 
 
 if __name__ == "__main__":
